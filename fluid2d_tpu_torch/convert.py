@@ -1,0 +1,54 @@
+"""Carry scenes and states between the JAX package and the port.
+
+Both packages use the same field names and the same ``(C, X, Y)`` layout,
+so a dict of NumPy arrays keyed by those names is the exchange format: a
+state built by the JAX package (every alternate buffer and CIP gradient
+plane included) runs unchanged in the port and comes back for comparison.
+This module imports no JAX; the caller turns JAX arrays into NumPy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fluid2d_tpu_torch.scenes.compile import Scene
+from fluid2d_tpu_torch.state import SimState
+
+__all__ = ["scene_from_numpy", "state_from_numpy", "state_to_numpy"]
+
+
+def _tensor(a: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    # A C-ordered copy: the input may be a read-only view of a JAX array.
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def scene_from_numpy(arrays: dict[str, np.ndarray], device: torch.device | str) -> Scene:
+    """A ``Scene`` on `device` from a dict holding every ``Scene`` field."""
+    missing = [name for name in Scene._fields if name not in arrays]
+    if missing:
+        msg = f"scene arrays lack {missing}"
+        raise KeyError(msg)
+    return Scene(**{name: _tensor(arrays[name], device) for name in Scene._fields})
+
+
+def state_from_numpy(arrays: dict[str, np.ndarray], device: torch.device | str) -> SimState:
+    """A ``SimState`` on `device`. Required: ``step, v, v_alt, p, p_alt``;
+    optional leaves absent from `arrays` stay ``None``. Dtypes are kept
+    (the step counter is int32, fields float32)."""
+    unknown = set(arrays) - set(SimState._fields)
+    if unknown:
+        msg = f"not SimState fields: {sorted(unknown)}"
+        raise KeyError(msg)
+    kw = {name: _tensor(np.asarray(a), device) for name, a in arrays.items()}
+    kw["step"] = kw["step"].to(torch.int32)
+    return SimState(**kw)
+
+
+def state_to_numpy(state: SimState) -> dict[str, np.ndarray]:
+    """Every non-``None`` leaf of `state` as a host NumPy array."""
+    return {
+        name: leaf.detach().cpu().numpy()
+        for name, leaf in zip(SimState._fields, state)
+        if leaf is not None
+    }

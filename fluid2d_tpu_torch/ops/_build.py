@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``fluid2d_tpu_torch/csrc/*.cu`` into one shared
+library with a plain C interface, which is loaded with ``ctypes``. The
+library's name carries a hash of the sources and flags, so an edited
+source builds anew and an unchanged one is reused. The build happens at
+first use, in ``fluid2d_tpu_torch/_build/`` (listed in ``.gitignore``).
+
+No PyTorch headers are compiled (that takes minutes per build); pointers
+and the stream cross as ``c_void_p``, ints as ``c_int``, scalars as
+``c_float``. Without ``nvcc`` the build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_library", "load_library", "check"]
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+# sm_90a: Hopper. No --use_fast_math: it changes division, sqrt and
+# NaN/denormal behavior. -fmad=false: no FMA contraction, so that the
+# kernels round every product as PyTorch's eager ops do and agree with the
+# eager path to the bit (csrc/common.cuh says why that matters).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: argument types, in order.
+_SIGNATURES = {
+    # p_cur, p_alt, u, w, pbc_code, fluid8, p_out, p_bc, v_lim, X, Y,
+    # omega, 1-omega, dx, 1/(8·dt), v_limit, stream
+    "f2d_sor_iteration": [_P] * 9 + [_I, _I] + [_F] * 5 + [_P],
+    # v, v_alt, fluid8, vort, vort_abs, v_out, X, Y, 1/dx, dt·ε, stream
+    "f2d_confinement": [_P] * 6 + [_I, _I] + [_F] * 2 + [_P],
+    # 11 inputs, 1 scratch, 6 outputs, X, Y,
+    # dt, dx, dx², dx³, 1/dx, 1/dx², 1/re, 1/(2dx), stream
+    "f2d_cip_velocity_phase": [_P] * 18 + [_I, _I] + [_F] * 8 + [_P],
+    "f2d_cip_dye_phase": [_P] * 18 + [_I, _I] + [_F] * 8 + [_P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    default = cuda_home / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    msg = f"nvcc not found (PATH, {default}): the CUDA kernels cannot be built"
+    raise RuntimeError(msg)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfluid2d_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_library() -> Path:
+    """Compile the sources unless a library for them already exists.
+    Returns its path. Raises ``RuntimeError`` with nvcc's output on
+    failure."""
+    target = library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        msg = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        raise RuntimeError(msg)
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    return target
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's argtypes set
+    (built first if needed)."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.f2d_error_string.argtypes = [ctypes.c_int]
+    lib.f2d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = f"{what}: CUDA error {rc} ({lib.f2d_error_string(rc).decode()})"
+        raise RuntimeError(msg)

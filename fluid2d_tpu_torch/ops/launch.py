@@ -1,0 +1,71 @@
+"""Argument checks and launch plumbing shared by the kernel wrappers.
+
+A wrapper hands raw pointers to a C entry point, so everything the
+kernel assumes is checked here first: device, dtype, shape, contiguity.
+The kernel library is imported and built only when a CUDA tensor is
+launched on, never when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+__all__ = ["on_cpu", "require", "launch", "recip32"]
+
+
+def recip32(x: float) -> float:
+    """The float32 multiplier by which PyTorch's CUDA kernels compute
+    ``tensor / x`` for a Python scalar x: 1/x in double, rounded once to
+    float32 (checked on an H100 with torch 2.11: bit-equal to the division
+    where the float32 reciprocal of float32(x) is not). The kernels multiply
+    by this where the eager path divides by a constant."""
+    return float(np.float32(1.0 / x))
+
+
+def on_cpu(t: torch.Tensor, wrapper: str) -> bool:
+    """True for a CPU tensor (the wrapper takes its plain version), False
+    for a CUDA tensor (it launches its kernel); raises for any other
+    device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        msg = f"{wrapper}: unsupported device {t.device}"
+        raise ValueError(msg)
+    return False
+
+
+def require(t: torch.Tensor, name: str, shape: tuple[int, ...], dtype: torch.dtype,
+            device: torch.device) -> int:
+    """Check one kernel operand; return its data pointer."""
+    if not isinstance(t, torch.Tensor):
+        msg = f"{name}: expected a tensor, got {type(t).__name__}"
+        raise TypeError(msg)
+    if t.device != device:
+        msg = f"{name}: on {t.device}, expected {device}"
+        raise ValueError(msg)
+    if t.dtype != dtype:
+        msg = f"{name}: dtype {t.dtype}, expected {dtype}"
+        raise TypeError(msg)
+    if tuple(t.shape) != shape:
+        msg = f"{name}: shape {tuple(t.shape)}, expected {shape}"
+        raise ValueError(msg)
+    if not t.is_contiguous():
+        msg = f"{name}: not contiguous"
+        raise ValueError(msg)
+    return t.data_ptr()
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call C entry point `entry` of the kernel library on `device`'s
+    current stream (appended as the last argument); raise on a CUDA
+    error."""
+    from fluid2d_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    _build.check(lib, rc, entry)

@@ -1,8 +1,8 @@
 """fluid2d_tpu_torch — the PyTorch and CUDA port of fluid2d_tpu.
 
-The CIP main path (scene builders, eager ops, the CIP step, the run loop)
-in PyTorch, with its four phase kernels hand-written in CUDA C++ for
-Hopper (``csrc/``). The JAX package ``fluid2d_tpu`` is the reference the
+Scene builders, eager ops, the CIP and MAC (upwind, Kawamura-Kuwahara)
+steps with the SOR or Jacobi pressure solver, and the run loop in PyTorch,
+with every phase kernel hand-written in CUDA C++ for Hopper (``csrc/``). The JAX package ``fluid2d_tpu`` is the reference the
 port is held against; this package never imports JAX.
 """
 

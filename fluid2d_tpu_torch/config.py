@@ -6,9 +6,9 @@ The same frozen, hashable config with the same defaults. What differs:
   plain PyTorch versions: ``"auto"`` uses the kernels for CUDA tensors and
   the plain versions for CPU tensors, ``"cuda"`` requires CUDA tensors,
   ``"eager"`` runs the plain versions everywhere (the comparison path).
-* Only the CIP scheme, the SOR solver and float32 state are ported so far;
-  the other values of ``scheme``, ``pressure_solver`` and ``dtype`` are
-  refused with an error that says so.
+* All three schemes (``upwind``, ``kk``, ``cip``) and both pressure
+  solvers (``sor``, ``jacobi``) are ported; only float32 state is, so
+  ``dtype="bfloat16"`` is refused with an error that says so.
 """
 
 from __future__ import annotations
@@ -66,14 +66,8 @@ class SimConfig:
         if scheme not in ("upwind", "kk", "cip"):
             msg = f"Unknown scheme: {scheme}"
             raise ValueError(msg)
-        if scheme != "cip":
-            msg = f"scheme {scheme!r} is not ported to PyTorch yet (only 'cip')"
-            raise ValueError(msg)
         if pressure_solver not in ("sor", "jacobi"):
             msg = f"Unknown pressure solver: {pressure_solver}"
-            raise ValueError(msg)
-        if pressure_solver != "sor":
-            msg = f"pressure solver {pressure_solver!r} is not ported to PyTorch yet (only 'sor')"
             raise ValueError(msg)
         if dtype not in ("float32", "bfloat16"):
             msg = f"Unknown transport dtype: {dtype}"

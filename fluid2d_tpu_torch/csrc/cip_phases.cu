@@ -14,7 +14,9 @@
 //   4. CIP advection      (f_na, g_na) by the carrying velocity at fluid
 //                         cells; f_bc and the pre-phase gradients elsewhere
 // The velocity phase carries by its own f_na; the dye phase by the limited
-// velocity it is given, and clamps the advected dye to [0, 1].
+// velocity it is given, and clamps the advected dye to [0, 1]. The BC
+// kernels are those of bc.cuh, shared with the MAC phases.
+#include "bc.cuh"
 #include "cip_advect.cuh"
 #include "common.cuh"
 
@@ -22,41 +24,6 @@ using f2d::CipConsts;
 using f2d::Grid;
 
 namespace {
-
-// Velocity BC by the packed vbc_code (fluid2d_tpu/ops/pallas_phases.py:91-117):
-// 1..4 ghost mirrors, 5 inflow, 6 outflow (x component only, fmaxf: NaN → 0.05).
-__global__ void velocity_bc_kernel(const float* __restrict__ v,
-                                   const int8_t* __restrict__ vbc_code,
-                                   const float* __restrict__ bc_const, float* __restrict__ out,
-                                   Grid g) {
-  int i, j;
-  if (!f2d::cell_of(g, i, j)) return;
-  const int c = blockIdx.z;
-  const long long k = (long long)i * g.Y + j;
-  const float* vc = v + c * g.plane();
-  float r = vc[k];
-  switch (vbc_code[k]) {
-    case 1: r = -vc[g.at(i - 2, j)]; break;
-    case 2: r = -vc[g.at(i + 2, j)]; break;
-    case 3: r = -vc[g.at(i, j - 2)]; break;
-    case 4: r = -vc[g.at(i, j + 2)]; break;
-    case 5: r = bc_const[c * g.plane() + k]; break;
-    case 6:
-      if (c == 0) r = fmaxf(vc[g.at(i - 1, j)], 0.05f);
-      break;
-    default: break;
-  }
-  out[c * g.plane() + k] = r;
-}
-
-__global__ void dye_bc_kernel(const float* __restrict__ dye, const int8_t* __restrict__ inflow,
-                              const float* __restrict__ bc_dye, float* __restrict__ out, Grid g) {
-  int i, j;
-  if (!f2d::cell_of(g, i, j)) return;
-  const long long k = (long long)i * g.Y + j;
-  const long long kc = blockIdx.z * g.plane() + k;
-  out[kc] = inflow[k] != 0 ? bc_dye[kc] : dye[kc];
-}
 
 // f_bc + (−∇p + ∇²f/Re)·dt (velocity, p given) or f_bc + (∇²f/Re)·dt
 // (dye, p null) at not-wall cells; the alternate buffer elsewhere.
@@ -157,7 +124,7 @@ extern "C" int f2d_cip_velocity_phase(
   const long long plane = (long long)X * Y;
   const dim3 blocks = f2d::launch_blocks(X, Y, 2), threads = f2d::launch_threads();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  velocity_bc_kernel<<<blocks, threads, 0, s>>>(v, vbc_code, bc_const, v_bc, g);
+  f2d::velocity_bc_kernel<<<blocks, threads, 0, s>>>(v, vbc_code, bc_const, v_bc, g);
   F2D_CHECK_LAUNCH();
   non_advection_kernel<<<blocks, threads, 0, s>>>(v_bc, p, v_alt, not_wall8, v_na, g, c);
   F2D_CHECK_LAUNCH();
@@ -183,7 +150,7 @@ extern "C" int f2d_cip_dye_phase(
   const long long plane = (long long)X * Y;
   const dim3 blocks = f2d::launch_blocks(X, Y, 3), threads = f2d::launch_threads();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dye_bc_kernel<<<blocks, threads, 0, s>>>(dye, inflow8, bc_dye, d_bc, g);
+  f2d::dye_bc_kernel<<<blocks, threads, 0, s>>>(dye, inflow8, bc_dye, d_bc, g);
   F2D_CHECK_LAUNCH();
   non_advection_kernel<<<blocks, threads, 0, s>>>(d_bc, nullptr, dye_alt, not_wall8, d_na, g, c);
   F2D_CHECK_LAUNCH();

@@ -16,6 +16,7 @@ import torch
 
 from fluid2d_tpu_torch.config import SimConfig
 from fluid2d_tpu_torch.models.cip import cip_step
+from fluid2d_tpu_torch.models.mac import mac_step
 from fluid2d_tpu_torch.scenes.compile import Scene, get_scene
 from fluid2d_tpu_torch.state import SimState, init_state
 
@@ -23,11 +24,9 @@ __all__ = ["FluidSimulator", "make_step_fn", "make_run_fn"]
 
 
 def make_step_fn(cfg: SimConfig):
-    """The single step ``(state, scene) → state`` for `cfg`."""
-    if cfg.scheme != "cip":
-        msg = f"scheme {cfg.scheme!r} is not ported to PyTorch yet"
-        raise ValueError(msg)
-    return functools.partial(cip_step, cfg=cfg)
+    """The single step ``(state, scene) → state`` for `cfg`: the CIP step,
+    or the MAC step for the upwind and KK schemes."""
+    return functools.partial(cip_step if cfg.scheme == "cip" else mac_step, cfg=cfg)
 
 
 def make_run_fn(cfg: SimConfig):

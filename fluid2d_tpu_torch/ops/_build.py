@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``fluid2d_tpu_torch/csrc/*.cu`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``. The
+``nvcc`` compiles every ``fluid2d_tpu_torch/csrc/*.cu`` to an object, one
+process per source, all started together, then links the objects into one
+shared library with a plain C interface, which is loaded with ``ctypes``. The
 library's name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one is reused. The build happens at
 first use, in ``fluid2d_tpu_torch/_build/`` (listed in ``.gitignore``).
@@ -33,7 +34,7 @@ BUILD_DIR = PKG_DIR / "_build"
 # eager path to the bit (csrc/common.cuh says why that matters).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -48,6 +49,15 @@ _SIGNATURES = {
     # dt, dx, dx², dx³, 1/dx, 1/dx², 1/re, 1/(2dx), stream
     "f2d_cip_velocity_phase": [_P] * 18 + [_I, _I] + [_F] * 8 + [_P],
     "f2d_cip_dye_phase": [_P] * 18 + [_I, _I] + [_F] * 8 + [_P],
+    # p_cur, p_alt, u, w, pbc_code, not_wall8, p_out, p_bc, 2 scratch, v_lim,
+    # X, Y, n_iters, dx, 1/(8·dt), v_limit, stream
+    "f2d_jacobi_iteration": [_P] * 11 + [_I] * 3 + [_F] * 3 + [_P],
+    # v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc, X, Y, kk,
+    # dt, 1/dx, 1/dx or 1/(6dx), 1/dx², 1/re, stream
+    "f2d_mac_velocity_phase": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_P],
+    # dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, X, Y, C, kk,
+    # dt, 1/dx or 1/(6dx), stream
+    "f2d_mac_dye_phase": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
 }
 
 
@@ -84,15 +94,25 @@ def build_library() -> Path:
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        msg = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        raise RuntimeError(msg)
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        outs = [proc.communicate()[0] for proc in procs]  # waits for every process
+        for cmd, proc, out in zip(compiles, procs, outs):
+            if proc.returncode != 0:
+                msg = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+                raise RuntimeError(msg)
+        tmp = Path(work) / target.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            msg = f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}"
+            raise RuntimeError(msg)
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
     return target
 
 

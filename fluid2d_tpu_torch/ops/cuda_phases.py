@@ -1,5 +1,5 @@
-"""Whole-phase kernels of the CIP step: the CUDA kernels and their plain
-PyTorch versions.
+"""Whole-phase kernels of the CIP and MAC steps: the CUDA kernels and their
+plain PyTorch versions.
 
 Source notes.
 
@@ -24,6 +24,20 @@ Source notes.
   the limited velocity, value clamped to [0, 1].
   Bound: bytes, as the velocity phase.
 
+``mac_velocity_phase_cuda``
+  Replaces ``pallas_phases.py:mac_velocity_phase_pallas`` (core
+  ``_mac_velocity_core``). Kernel ``csrc/mac_phases.cu``: two launches,
+  velocity BC (the new alternate, an output), then the upwind or KK
+  momentum update at fluid cells reading the BC'd field with clamped
+  indices. Bound: bytes — reads v, v_alt, bc_const, p and two int8 planes,
+  writes two (2, X, Y) outputs, ~40 (upwind) to ~60 (KK) flops per cell.
+
+``mac_dye_phase_cuda``
+  Replaces ``pallas_phases.py:mac_dye_phase_pallas``. Same two launches on
+  the 3 dye channels: inflow BC (the new alternate), then upwind or KK
+  advection by the limited velocity at fluid cells and the [0, 1] clamp.
+  Bound: bytes, ~15–30 flops per cell and channel.
+
 What the simple design does about the bound: nothing yet. One thread per
 cell, ``threadIdx.x`` along the contiguous Y axis (coalesced), neighbours
 read from global memory with clamp-to-edge index math, every stage's
@@ -39,14 +53,17 @@ from __future__ import annotations
 
 import torch
 
+from fluid2d_tpu_torch.ops.advection import advect_kk, advect_upwind
 from fluid2d_tpu_torch.ops.cip import (
     cip_advect,
+    diff2_sum,
     non_advection_diffusion,
     non_advection_grad,
     non_advection_velocity,
 )
 from fluid2d_tpu_torch.ops.launch import launch, on_cpu, recip32, require
 from fluid2d_tpu_torch.ops.limiters import clamp_field
+from fluid2d_tpu_torch.ops.stencil import diff_x, diff_y
 from fluid2d_tpu_torch.ops.vorticity import apply_confinement
 from fluid2d_tpu_torch.scenes.runtime_bc import dye_bc, velocity_bc
 from fluid2d_tpu_torch.utils.dtypes import f32
@@ -58,6 +75,10 @@ __all__ = [
     "cip_velocity_phase_plain",
     "cip_dye_phase_cuda",
     "cip_dye_phase_plain",
+    "mac_velocity_phase_cuda",
+    "mac_velocity_phase_plain",
+    "mac_dye_phase_cuda",
+    "mac_dye_phase_plain",
 ]
 
 
@@ -223,3 +244,113 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
 
 
 cip_dye_phase_cuda.launches = 0
+
+
+# --- MAC phases -----------------------------------------------------------------
+
+_ADVECT = {"upwind": advect_upwind, "kk": advect_kk}
+
+
+def _advect_fn(scheme: str):
+    if scheme not in _ADVECT:
+        msg = f"MAC phases take scheme 'upwind' or 'kk', not {scheme!r}"
+        raise ValueError(msg)
+    return _ADVECT[scheme]
+
+
+def _inv_adv(scheme: str, dx: float) -> float:
+    """The divisor of the scheme's differences as the eager path rounds it:
+    1/dx (upwind) or 1/(6·dx) (KK)."""
+    return recip32(6.0 * dx) if scheme == "kk" else recip32(dx)
+
+
+def mac_velocity_phase_plain(v, p, v_alt, scene, scheme: str, re: float, dt: float, dx: float):
+    """The velocity phase composed from the eager ops, as the jnp branch
+    of ``fluid2d_tpu/models/mac.py:66-74``. Returns ``(v_cur, vc)``: the
+    updated velocity (fluid cells; `v_alt` elsewhere) and the BC'd input,
+    the new alternate."""
+    advect = _advect_fn(scheme)
+    sd = v.dtype
+    vc = velocity_bc(f32(v), scene)
+    p32 = f32(p)
+    rhs = (
+        -advect(vc[0], vc[1], vc, dx)
+        - torch.stack([diff_x(p32, dx), diff_y(p32, dx)])
+        + diff2_sum(vc, dx) / re
+    )
+    v_cur = torch.where(scene.fluid, vc + dt * rhs, f32(v_alt))
+    return v_cur.to(sd), vc.to(sd)
+
+
+def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: float, dx: float):
+    """Whole MAC velocity phase: velocity BC, then the upwind or KK
+    momentum update at fluid cells. Returns ``(v_cur, vc)``."""
+    _advect_fn(scheme)
+    if on_cpu(v, "mac_velocity_phase_cuda"):
+        return mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx)
+    dev = v.device
+    _, x_rows, y_cols = v.shape
+    vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
+    f32_, i8 = torch.float32, torch.int8
+    ptrs = [
+        require(v, "v", vec, f32_, dev),
+        require(p, "p", plane, f32_, dev),
+        require(v_alt, "v_alt", vec, f32_, dev),
+        require(scene.bc_const, "scene.bc_const", vec, f32_, dev),
+        require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
+        require(scene.fluid8, "scene.fluid8", plane, i8, dev),
+    ]
+    v_out = torch.empty_like(v)
+    v_bc = torch.empty_like(v)
+    launch("f2d_mac_velocity_phase", dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(),
+           x_rows, y_cols, int(scheme == "kk"), dt, recip32(dx), _inv_adv(scheme, dx),
+           recip32(dx**2), recip32(re))
+    mac_velocity_phase_cuda.launches += 1
+    return v_out, v_bc
+
+
+mac_velocity_phase_cuda.launches = 0
+
+
+def mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: float):
+    """The dye phase composed from the eager ops, as the jnp branch of
+    ``fluid2d_tpu/models/mac.py:98-105``. Returns ``(dye_cur, dc)``: the
+    advected dye (fluid cells; `dye_alt` elsewhere) clamped to [0, 1], and
+    the unclamped BC'd input, the new alternate."""
+    advect = _advect_fn(scheme)
+    sd = dye.dtype
+    dc = dye_bc(f32(dye), scene)
+    vel = f32(vel)
+    dn = dc - dt * advect(vel[0], vel[1], dc, dx)
+    dye_cur = clamp_field(torch.where(scene.fluid, dn, f32(dye_alt)), 0.0, 1.0)
+    return dye_cur.to(sd), dc.to(sd)
+
+
+def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: float):
+    """Whole MAC dye phase: inflow BC, upwind or KK advection by `vel`
+    (the limited velocity) at fluid cells, [0, 1] clamp. Returns
+    ``(dye_cur, dc)``."""
+    _advect_fn(scheme)
+    if on_cpu(dye, "mac_dye_phase_cuda"):
+        return mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx)
+    dev = dye.device
+    chans, x_rows, y_cols = dye.shape
+    dyes, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
+    f32_, i8 = torch.float32, torch.int8
+    ptrs = [
+        require(dye, "dye", dyes, f32_, dev),
+        require(dye_alt, "dye_alt", dyes, f32_, dev),
+        require(vel, "vel", vec, f32_, dev),
+        require(scene.bc_dye, "scene.bc_dye", dyes, f32_, dev),
+        require(scene.inflow8, "scene.inflow8", plane, i8, dev),
+        require(scene.fluid8, "scene.fluid8", plane, i8, dev),
+    ]
+    d_out = torch.empty_like(dye)
+    d_bc = torch.empty_like(dye)
+    launch("f2d_mac_dye_phase", dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(),
+           x_rows, y_cols, chans, int(scheme == "kk"), dt, _inv_adv(scheme, dx))
+    mac_dye_phase_cuda.launches += 1
+    return d_out, d_bc
+
+
+mac_dye_phase_cuda.launches = 0

@@ -1,13 +1,13 @@
-"""Pressure Poisson iteration operators, red-black SOR (port of
-``fluid2d_tpu/ops/pressure.py``; the Jacobi solver is not ported yet).
+"""Pressure Poisson iteration operators, Jacobi and red-black SOR (port of
+``fluid2d_tpu/ops/pressure.py``).
 
 The reference's double-buffer dance has observable staleness semantics
 that are reproduced exactly:
 
 * Each iteration applies the pressure BC to the *current* buffer, then the
   sweeps write into the *alternate* buffer — whose non-swept cells (walls,
-  inflow/outflow, and the pre-sweep even-parity values) keep values from
-  one iteration earlier. The buffers then swap.
+  inflow/outflow and the pre-sweep even-parity values for SOR; walls only
+  for Jacobi) keep values from one iteration earlier. The buffers then swap.
 * The even sweep reads the buffer it writes (Gauss-Seidel coloring,
   ``fs/pressure_updater.py:92-96``): even cells see the odd sweep's fresh
   neighbors but their *own* stale value in the relaxation term.
@@ -20,7 +20,7 @@ import torch
 from fluid2d_tpu_torch.ops.stencil import shift_x, shift_y
 from fluid2d_tpu_torch.scenes.runtime_bc import pressure_bc
 
-__all__ = ["predict_p", "sor_pressure_iteration"]
+__all__ = ["predict_p", "sor_pressure_iteration", "jacobi_pressure_iteration"]
 
 
 def predict_p(p, u, w, dt: float, dx: float) -> torch.Tensor:
@@ -55,4 +55,16 @@ def sor_pressure_iteration(p_cur, p_alt, u, w, scene, omega: float, dt: float, d
     pn = torch.where(scene.odd_fluid, (1.0 - omega) * pc + omega * predict_p(pc, u, w, dt, dx), p_alt)
     # Even sweep: read AND write the same buffer (Gauss-Seidel coloring).
     pn = torch.where(scene.even_fluid, (1.0 - omega) * pn + omega * predict_p(pn, u, w, dt, dx), pn)
+    return pn, pc
+
+
+def jacobi_pressure_iteration(p_cur, p_alt, u, w, scene, dt: float, dx: float):
+    """One Jacobi iteration (``fs/pressure_updater.py:42-66``): every
+    not-wall cell of the alternate buffer takes the prediction from the
+    BC'd current buffer. `scene` needs ``pbc_code`` and ``not_wall``.
+
+    Returns the new ``(p_cur, p_alt)`` pair (post-swap order).
+    """
+    pc = pressure_bc(p_cur, scene)
+    pn = torch.where(scene.not_wall, predict_p(pc, u, w, dt, dx), p_alt)
     return pn, pc

@@ -57,6 +57,7 @@ def _kernel_calls(res: int, device):
     dye = rnd((3,), 0.5) + 0.5
     dg = [rnd((3,), 0.1) for _ in range(5)]
     sor = (p, pa, u, w, sc.pbc_code, sc.fluid8, cfg.sor_omega, cfg.dt, cfg.dx)
+    jacobi = (p, pa, u, w, sc.pbc_code, sc.not_wall8, cfg.dt, cfg.dx)
     return [
         (cuda_stencil.sor_iteration_cuda, cuda_stencil.sor_iteration_plain, sor, {}),
         (cuda_stencil.sor_iteration_cuda, cuda_stencil.sor_iteration_plain, sor,
@@ -67,13 +68,24 @@ def _kernel_calls(res: int, device):
          (v, p, va, vg[0], vg[1], vg[2], vg[3], sc, cfg.re, cfg.dt, cfg.dx), {}),
         (cuda_phases.cip_dye_phase_cuda, cuda_phases.cip_dye_phase_plain,
          (dye, *dg, v, sc, cfg.re, cfg.dt, cfg.dx), {}),
+        *((cuda_stencil.jacobi_iteration_cuda, cuda_stencil.jacobi_iteration_plain, jacobi,
+           {"n_iters": n, "v_limit": lim}) for n, lim in ((1, None), (2, cfg.velocity_limit),
+                                                        (4, None), (4, cfg.velocity_limit))),
+        *((cuda_phases.mac_velocity_phase_cuda, cuda_phases.mac_velocity_phase_plain,
+           (v, p, va, sc, scheme, cfg.re, cfg.dt, cfg.dx), {}) for scheme in ("upwind", "kk")),
+        *((cuda_phases.mac_dye_phase_cuda, cuda_phases.mac_dye_phase_plain,
+           (dye, dg[0], v, sc, scheme, cfg.dt, cfg.dx), {}) for scheme in ("upwind", "kk")),
     ]
+
+
+KERNEL_IDS = ["sor", "sor_v_limit", "confinement", "cip_velocity", "cip_dye",
+              "jacobi1", "jacobi2_v_limit", "jacobi4", "jacobi4_v_limit",
+              "mac_velocity_upwind", "mac_velocity_kk", "mac_dye_upwind", "mac_dye_kk"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("res", [RES, RAGGED_RES])
-@pytest.mark.parametrize("which", range(5),
-                         ids=["sor", "sor_v_limit", "confinement", "cip_velocity", "cip_dye"])
+@pytest.mark.parametrize("which", range(len(KERNEL_IDS)), ids=KERNEL_IDS)
 def test_cuda_kernel_matches_plain(cuda_device, which, res):
     wrapper, plain, args, kwargs = _kernel_calls(res, cuda_device)[which]
     before = wrapper.launches
@@ -96,7 +108,14 @@ def test_cuda_wrapper_refuses_wrong_operands(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_run_matches_eager_run(cuda_device):
+@pytest.mark.parametrize("config", [
+    {},
+    {"scheme": "upwind"},
+    {"scheme": "kk"},
+    {"pressure_solver": "jacobi"},
+    {"scheme": "kk", "pressure_solver": "jacobi", "n_pressure_iter": 6},
+], ids=["cip", "upwind", "kk", "cip_jacobi", "kk_jacobi6"])
+def test_cuda_run_matches_eager_run(cuda_device, config):
     """4 steps through the kernels against 4 through the plain versions,
     from a seeded smooth state, every leaf within 2e-5·max(1, |ref|max)."""
     res = RES
@@ -107,7 +126,7 @@ def test_cuda_run_matches_eager_run(cuda_device):
     gy = torch.linspace(0, 2 * np.pi, y_cols, device=cuda_device)[None, :]
     outs = {}
     for mode in ("cuda", "eager"):
-        cfg = SimConfig.create(resolution=res, kernels=mode)
+        cfg = SimConfig.create(resolution=res, kernels=mode, **config)
         st = init_state(sc, cfg, cuda_device)
         st = st._replace(
             v=torch.stack([0.3 * torch.sin(gx) * torch.cos(2 * gy) * fluid,

@@ -1,6 +1,7 @@
-"""The port's four phase kernels: each plain PyTorch version against its
+"""The port's CIP-path kernels: each plain PyTorch version against its
 Pallas kernel (interpret mode, as tests/test_pallas.py runs them), and
-the CPU dispatch of the wrappers. The CUDA kernels themselves are tested
+the CPU dispatch of every wrapper (the MAC and Jacobi plain versions are
+held to their Pallas kernels in tests/test_torch_mac.py). The CUDA kernels themselves are tested
 against their plain versions in tests/test_torch_cuda.py.
 
 Inputs are seeded NumPy arrays handed to both packages. Tolerance: every
@@ -156,6 +157,13 @@ def _wrapper_calls():
          (*(v[k] for k in ("v", "p", "va", "vx", "vxa", "vy", "vya")), sc, RE, DT, DX), {}),
         (cuda_phases.cip_dye_phase_cuda, cuda_phases.cip_dye_phase_plain,
          (*(d[k] for k in ("dye", "da", "dxg", "dxa", "dyg", "dya", "vel")), sc, RE, DT, DX), {}),
+        (cuda_stencil.jacobi_iteration_cuda, cuda_stencil.jacobi_iteration_plain,
+         (s["p"], s["pa"], s["u"], s["w"], sc.pbc_code, sc.not_wall8, DT, DX),
+         {"n_iters": 2, "v_limit": 10.0}),
+        *((cuda_phases.mac_velocity_phase_cuda, cuda_phases.mac_velocity_phase_plain,
+           (v["v"], v["p"], v["va"], sc, scheme, RE, DT, DX), {}) for scheme in ("upwind", "kk")),
+        *((cuda_phases.mac_dye_phase_cuda, cuda_phases.mac_dye_phase_plain,
+           (d["dye"], d["da"], d["vel"], sc, scheme, DT, DX), {}) for scheme in ("upwind", "kk")),
     ]
 
 

@@ -6,7 +6,9 @@ alternates and CIP gradient planes included — is compared within
 2e-5·max(1, |ref|max), the ROADMAP's multi-step tolerance.
 
 Also: the NumPy exchange round-trips exactly, the package never imports
-JAX, and the config refuses what is not ported."""
+JAX, and the config accepts every scheme and solver and refuses what is not
+ported. The MAC and Jacobi runs are held to the JAX package in
+tests/test_torch_mac.py."""
 
 import subprocess
 import sys
@@ -56,9 +58,14 @@ def _np(state) -> dict[str, np.ndarray]:
     return {k: np.asarray(v) for k, v in zip(state._fields, state) if v is not None}
 
 
-def _assert_states_close(got: dict, ref: dict) -> None:
+# State leaves with dye on: step + the v and p pairs, + the CIP gradient
+# pairs of v and dye; MAC keeps only the dye pair beside them.
+LEAVES = {"cip": 15, "upwind": 7, "kk": 7}
+
+
+def _assert_states_close(got: dict, ref: dict, scheme: str = "cip") -> None:
     assert set(got) == set(ref)
-    assert len(ref) == 15  # step + v/p pairs + 4 CIP gradient pairs + 3 dye pairs
+    assert len(ref) == LEAVES[scheme]
     for name, r in ref.items():
         g = got[name]
         assert g.shape == r.shape and g.dtype == r.dtype, name
@@ -115,6 +122,8 @@ def test_package_never_imports_jax():
         "import sys\n"
         "import fluid2d_tpu_torch as ft\n"
         "ft.FluidSimulator.create(bc_num=2, resolution=16, device='cpu').step(2)\n"
+        "ft.FluidSimulator.create(bc_num=2, resolution=16, device='cpu', scheme='kk',\n"
+        "                         pressure_solver='jacobi').step(2)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid2d_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -133,15 +142,28 @@ def test_cuda_mode_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize(("kwargs", "match"), [
-    ({"scheme": "upwind"}, "not ported"),
+    ({"dtype": "bfloat16", "scheme": "kk"}, "not ported"),
     ({"scheme": "bogus"}, "Unknown scheme"),
-    ({"pressure_solver": "jacobi"}, "not ported"),
+    ({"pressure_solver": "bogus"}, "Unknown pressure solver"),
     ({"dtype": "bfloat16"}, "not ported"),
     ({"kernels": "pallas"}, "Unknown kernels mode"),
 ])
 def test_config_refuses_what_is_not_ported(kwargs, match):
     with pytest.raises(ValueError, match=match):
         ft.SimConfig.create(**kwargs)
+
+
+@pytest.mark.parametrize("solver", ["sor", "jacobi"])
+@pytest.mark.parametrize("scheme", ["upwind", "kk", "cip"])
+def test_config_accepts_every_scheme_and_solver(scheme, solver):
+    cfg = ft.SimConfig.create(resolution=16, scheme=scheme, pressure_solver=solver)
+    assert (cfg.scheme, cfg.pressure_solver) == (scheme, solver)
+    step = ft.make_step_fn(cfg)
+    assert step.func.__name__ == ("cip_step" if scheme == "cip" else "mac_step")
+    scene = ft.get_scene(2, 16, "cpu")
+    state = step(ft.init_state(scene, cfg, "cpu"), scene)
+    assert int(state.step) == 1
+    assert len([leaf for leaf in state if leaf is not None]) == LEAVES[scheme]
 
 
 def test_config_defaults_match_jax():

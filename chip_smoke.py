@@ -12,9 +12,10 @@ vorticity confinement ε=5, velocity limit 10 and float32 state:
   cip_jacobi2  CIP with the Jacobi solver, 2 iterations (one kernel run)
   cip_jacobi6  CIP with the Jacobi solver, 6 iterations (runs of 4, then 2)
 
-and bench.py's preset 1 (scene 1, res=400, upwind, Re=1000, dt=5e-4, no dye,
-no confinement), which takes the MAC step's dye-less, confinement-less
-branches. Phases, each printed as JSON lines:
+and the six presets of the port's bench (fluid2d_tpu_torch/bench.py:_PRESETS,
+the JAX package's bench.py presets), each at its own scene, resolution, Re,
+dt and ε: scenes 1, 2, 3, 5 and 6, res 400 to 4096 (an 8192×4096 grid).
+Phases, each printed as JSON lines:
 
 1. device  — the card; nvidia-smi's "name, power.limit" line is printed as is.
 2. build   — nvcc builds fluid2d_tpu_torch/csrc/*.cu (one process per source);
@@ -22,20 +23,40 @@ branches. Phases, each printed as JSON lines:
 3. kernels — each kernel (and each variant: scheme, iterations, limiter)
              against its plain PyTorch version at the res=1600 shapes on
              seeded random inputs: every output within 1e-5·max(1, |ref|max);
-             median ms of both over 20 calls (CUDA events).
-4. parity  — per path, a seeded smooth state, 4 steps with kernels="cuda" and
-             with kernels="eager" on the card: every state leaf within
-             2e-5·max(1, |ref|max); each kernel counter moved by exactly its
-             runs per step (RUNS_PER_STEP) times 4, and by 0 on the eager path.
+             median ms of both over 20 calls (CUDA events). The registry
+             check: the bytes each variant logs in the byte ledger equal
+             its registered operand mix (utils/profiling.py:mix_bytes).
+   probes  — the roofline's probes against their plain versions: the copy
+             (C2) bit-equal on the 320 MB working set, the mix twin (C3) of
+             every registered mix at the res=1600 grid within 1e-5, the FMA
+             chains (C4) at 64 passes within 1e-5 (one rounding against
+             two) and at the timed 8192 passes within the rounding bound
+             of the float64 plain version; the plain version one round
+             short must fail both checks (a negative control); ms and
+             plain ms (C4 timed at its full 8192 passes).
+4. parity  — per path (presets included), a seeded smooth state, 4 steps
+             with kernels="cuda" and with kernels="eager" on the card: every
+             state leaf within 2e-5·max(1, |ref|max); each kernel counter
+             moved by exactly its runs per step (RUNS_PER_STEP) times 4, and
+             by 0 on the eager path.
 5. run     — FluidSimulator.create(bc_num=2, resolution=1600, device="cuda")
              for cip, upwind, kk and cip_jacobi2: 2 warm-up steps, 200 timed
              steps ending in a synchronize and a device→host read; every leaf
              finite; the counters as in 4; steps/s, beside the eager path's
              steps/s over 20 steps.
+6. bench   — the port's bench entry points: bench_config for the headline
+             (res=1600 CIP, 200 steps after 200 warm-up steps) and run_preset
+             for presets 1–6; each must be stable and move each kernel
+             counter by exactly its runs per step times its 2n steps.
+7. roofline — roofline_report (the path of `bench --roofline`) for cip and kk
+             at res=1600: the copy bandwidth > 0 and at most the published
+             3.35 TB/s, a ceiling and a floor for every kernel, the share of
+             the geometry roofline; the probes C2–C4 must have launched.
 
-Then the kernel table as one JSON line, and as the last line
-{"ok": true, "device": {...}}. Any failure raises: the exit code is not 0 and
-the last line is not printed. Without a CUDA card it exits non-zero at once.
+Then the kernel table as one JSON line (launches summed over phases 5–7),
+and as the last line {"ok": true, "device": {...}}. Any failure raises: the
+exit code is not 0 and the last line is not printed. Without a CUDA card it
+exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -48,8 +69,9 @@ import time
 import numpy as np
 import torch
 
-from fluid2d_tpu_torch import FluidSimulator, SimConfig, get_scene, init_state, make_run_fn
-from fluid2d_tpu_torch.ops import _build, cuda_phases, cuda_stencil
+from fluid2d_tpu_torch import FluidSimulator, SimConfig, bench, get_scene, init_state, make_run_fn
+from fluid2d_tpu_torch.ops import _build, cuda_phases, cuda_probes, cuda_stencil, launch
+from fluid2d_tpu_torch.utils import profiling
 
 RES = 1600
 SCENE = 2
@@ -60,6 +82,11 @@ PARITY_STEPS = 4
 RUN_STEPS = 200
 WARMUP_STEPS = 2
 EAGER_STEPS = 20
+PLAIN_FMA_CALLS = 3  # the plain FMA chains at full depth take ~0.2 s a call
+FMA_CHECK_PASSES = 64
+FMA_PASSES = 8192
+ROOFLINE_STEPS = 100
+PUBLISHED_GBPS = 3350.0  # H100 SXM HBM3, NVIDIA's data sheet
 
 # name, wrapper, source, TPU kernel it replaces
 KERNELS = (
@@ -77,7 +104,20 @@ KERNELS = (
      "fluid2d_tpu_torch/csrc/mac_phases.cu", "fluid2d_tpu/ops/pallas_phases.py:2277"),
     ("jacobi_iteration", cuda_stencil.jacobi_iteration_cuda,
      "fluid2d_tpu_torch/csrc/jacobi.cu", "fluid2d_tpu/ops/pallas_stencil.py:1401"),
+    ("copy_add1", cuda_probes.copy_add1_cuda,
+     "fluid2d_tpu_torch/csrc/probes.cu", "fluid2d_tpu/utils/profiling.py:53"),
+    ("mix_twin", cuda_probes.mix_twin_cuda,
+     "fluid2d_tpu_torch/csrc/probes.cu", "fluid2d_tpu/utils/profiling.py:525"),
+    ("fma_rate", cuda_probes.fma_rate_cuda,
+     "fluid2d_tpu_torch/csrc/probes.cu", "fluid2d_tpu/utils/profiling.py:702"),
 )
+PROBES = ("copy_add1", "mix_twin", "fma_rate")
+
+
+def _preset_path(n: int):
+    kw = dict(bench._PRESETS[n]["kw"])
+    return kw.pop("bc"), kw.pop("res"), kw
+
 
 # path → (scene, resolution, SimConfig.create keywords)
 PATHS = {
@@ -86,21 +126,26 @@ PATHS = {
     "kk": (SCENE, RES, {"scheme": "kk"}),
     "cip_jacobi2": (SCENE, RES, {"pressure_solver": "jacobi"}),
     "cip_jacobi6": (SCENE, RES, {"pressure_solver": "jacobi", "n_pressure_iter": 6}),
-    "preset1": (1, 400, {"scheme": "upwind", "re": 1000.0, "dt": 5e-4, "vor_eps": None,
-                         "enable_dye": False}),
+    **{f"preset{n}": _preset_path(n) for n in bench._PRESETS},
 }
 RUN_PATHS = ("cip", "upwind", "kk", "cip_jacobi2")
 
 # Kernel runs per step of each path; a kernel not named runs 0 times.
+_CIP = {"cip_velocity_phase": 1, "confinement": 1, "sor_iteration": 2, "cip_dye_phase": 1}
 _MAC = {"confinement": 1, "sor_iteration": 2, "mac_velocity_phase": 1, "mac_dye_phase": 1}
 _CIP_JACOBI = {"cip_velocity_phase": 1, "confinement": 1, "cip_dye_phase": 1}
 RUNS_PER_STEP = {
-    "cip": {"cip_velocity_phase": 1, "confinement": 1, "sor_iteration": 2, "cip_dye_phase": 1},
+    "cip": _CIP,
     "upwind": _MAC,
     "kk": _MAC,
     "cip_jacobi2": {**_CIP_JACOBI, "jacobi_iteration": 1},
     "cip_jacobi6": {**_CIP_JACOBI, "jacobi_iteration": 2},
     "preset1": {"mac_velocity_phase": 1, "sor_iteration": 2},
+    "preset2": _MAC,
+    "preset3": _CIP,
+    "preset4": _CIP,
+    "preset5": _CIP,
+    "preset6": _CIP,
 }
 
 
@@ -128,13 +173,13 @@ def max_errors(got, ref, what: str, tol: float) -> tuple[float, float]:
     return worst_abs, worst_rel
 
 
-def median_ms(fn) -> float:
-    """Median device time of one call over TIMED_CALLS calls (CUDA events)."""
+def median_ms(fn, calls: int = TIMED_CALLS) -> float:
+    """Median device time of one call over `calls` calls (CUDA events)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(TIMED_CALLS):
+    for _ in range(calls):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -207,6 +252,70 @@ def kernel_cases(scene, cfg, dev):
     }
 
 
+def probe_cases(scene, dev):
+    """Per probe: a list of (variant, wrapper call, plain call, tol) at the
+    shapes the roofline gives it; the timed calls of a variant may differ
+    from the compared ones (the FMA chains compare shallow, time deep).
+    Returns also {variant: (timed wrapper call, timed plain call)}."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = max(64, (320 * 2**20 // 2 // 4 // 2048) // 64 * 64)  # measure_hbm_bandwidth's
+    x = torch.randn((rows, 2048), generator=gen, device=dev)
+    out = torch.empty_like(x)
+    fx = torch.rand((2048, 1024), generator=gen, device=dev)  # measure_fma_throughput's shape
+    copy = (lambda: (cuda_probes.copy_add1_cuda(x, out=out),),
+            lambda: (cuda_probes.copy_add1_plain(x),))
+    fma = {p: (lambda p=p: (cuda_probes.fma_rate_cuda(fx, p),),
+               lambda p=p: (cuda_probes.fma_rate_plain(fx, p),))
+           for p in (FMA_CHECK_PASSES, FMA_PASSES)}
+    cases = {
+        "copy_add1": [("", *copy, 0.0, copy)],
+        "mix_twin": [],
+        "fma_rate": [("", *fma[FMA_CHECK_PASSES], KERNEL_TOL, fma[FMA_PASSES])],
+    }
+    for mix in profiling._KERNEL_MIXES:
+        ops = profiling.twin_operands(mix, *scene.shape, dev)
+        twin = (lambda ops=ops: cuda_probes.mix_twin_cuda(ops),
+                lambda ops=ops: cuda_probes.mix_twin_plain(ops))
+        cases["mix_twin"].append((f"_{mix}", *twin, KERNEL_TOL, twin))
+    return cases
+
+
+def check_fma_depth(dev) -> dict:
+    """C4's checks beyond the shallow comparison of probe_cases, at the
+    probe's shape: the timed depth (FMA_PASSES) within the rounding bound
+    of the float64 plain version, and two negative controls, which show
+    that the checks see a missing round: the plain version one round short
+    must fail KERNEL_TOL at the shallow depth and the bound at every element
+    at full depth. Returns the errors and margins."""
+    gen = torch.Generator(device=dev).manual_seed(4322)
+    fx = torch.rand((2048, 1024), generator=gen, device=dev)
+    short = FMA_CHECK_PASSES - cuda_probes.FMA_CHAINS
+    got = cuda_probes.fma_rate_cuda(fx, FMA_CHECK_PASSES)
+    miss = cuda_probes.fma_rate_plain(fx, short)
+    shallow_miss = float((got - miss).abs().max())
+    shallow_tol = KERNEL_TOL * max(1.0, float(miss.abs().max()))
+    if shallow_miss <= shallow_tol:
+        raise AssertionError(f"fma_rate: {short} passes within {shallow_tol} of "
+                             f"{FMA_CHECK_PASSES} ({shallow_miss}): the check cannot see a round")
+    deep = cuda_probes.fma_rate_cuda(fx, FMA_PASSES).double()
+    bound = cuda_probes.fma_rate_error_bound(fx, FMA_PASSES)
+    exact = cuda_probes.fma_rate_plain(fx.double(), FMA_PASSES)
+    deep_err = float((deep - exact).abs().max())
+    if deep_err > bound:
+        raise AssertionError(f"fma_rate at {FMA_PASSES} passes: error {deep_err} > bound {bound}")
+    short64 = cuda_probes.fma_rate_plain(fx.double(), FMA_PASSES - cuda_probes.FMA_CHAINS)
+    deep_miss = float((deep - short64).abs().min())
+    if deep_miss <= bound:
+        raise AssertionError(f"fma_rate: one round short is within the bound {bound} "
+                             f"({deep_miss}) at some element")
+    out = {"max_abs_err_full_depth": deep_err, "bound_full_depth": bound,
+           "one_round_short_min_err_full_depth": deep_miss,
+           "one_round_short_max_err_shallow": shallow_miss, "tol_shallow": shallow_tol}
+    emit({"phase": "probe_check", "name": "fma_rate", "passes": [FMA_CHECK_PASSES, FMA_PASSES],
+          **out})
+    return out
+
+
 def seeded_state(scene, cfg, dev):
     """The smooth seeded state of __graft_entry__.py (fluid cells only)."""
     st = init_state(scene, cfg, dev)
@@ -247,6 +356,7 @@ def leaves(state):
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
 
@@ -265,25 +375,48 @@ def main() -> None:
     _build.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name})
 
-    # 3. kernels against their plain versions at the main path's shapes
+    # 3. kernels against their plain versions at the main path's shapes, and
+    # the byte ledger of each against its registered operand mix
     cfg = SimConfig.create(resolution=RES)
     scene = get_scene(SCENE, RES, dev)
     table = {}
+
+    def record(name, variant, err, rel, tol, ms, plain_ms, **extra):
+        emit({"phase": "kernel", "name": name + variant, "max_abs_err": err,
+              "max_rel_err": rel, "tol": tol, "ms": ms, "plain_ms": plain_ms, **extra})
+        row = table.setdefault(name, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.setdefault("ms", ms)
+        row.setdefault("plain_ms", plain_ms)
+        if variant:
+            row["ms" + variant], row["plain_ms" + variant] = ms, plain_ms
+
     for name, variants in kernel_cases(scene, cfg, dev).items():
         for variant, kernel, plain in variants:
-            got = kernel()
+            launch.TRAFFIC_LOG = ledger = []
+            try:
+                got = kernel()
+            finally:
+                launch.TRAFFIC_LOG = None
             torch.cuda.synchronize()
             err, rel = max_errors(got, plain(), name + variant, KERNEL_TOL)
-            ms, plain_ms = median_ms(kernel), median_ms(plain)
-            emit({"phase": "kernel", "name": name + variant, "max_abs_err": err,
-                  "max_rel_err": rel, "tol": KERNEL_TOL, "ms": ms, "plain_ms": plain_ms,
-                  "grid": list(scene.shape)})
-            row = table.setdefault(name, {"max_abs_err": 0.0})
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            row.setdefault("ms", ms)
-            row.setdefault("plain_ms", plain_ms)
-            if variant:
-                row["ms" + variant], row["plain_ms" + variant] = ms, plain_ms
+            want = [(name + variant, profiling.mix_bytes(name + variant, *scene.shape))]
+            if ledger != want:
+                raise AssertionError(f"registry[{name + variant}]: ledger {ledger}, mix {want}")
+            record(name, variant, err, rel, KERNEL_TOL, median_ms(kernel), median_ms(plain),
+                   grid=list(scene.shape), ledger_bytes=ledger[0][1])
+
+    # 3b. the roofline's probes against their plain versions
+    for name, variants in probe_cases(scene, dev).items():
+        for variant, kernel, plain, tol, (timed, timed_plain) in variants:
+            got = kernel()
+            torch.cuda.synchronize()
+            err, rel = max_errors(got, plain(), name + variant, tol)
+            plain_calls = PLAIN_FMA_CALLS if name == "fma_rate" else TIMED_CALLS
+            record(name, variant, err, rel, tol, median_ms(timed),
+                   median_ms(timed_plain, plain_calls), phase="probe",
+                   shape=list(got[0].shape))
+    table["fma_rate"].update(check_fma_depth(dev))
 
     # 4. parity of every path: kernels against the eager path, 4 steps
     for path in PATHS:
@@ -294,15 +427,82 @@ def main() -> None:
     for path in RUN_PATHS:
         launches[path] = run_path(path, scene)
 
+    # 6. the bench entry points: the headline and presets 1-6
+    launches["bench"] = run_bench(dev)
+
+    # 7. the roofline report (bench --roofline) for cip and kk
+    for scheme in ("cip", "kk"):
+        launches[f"roofline_{scheme}"] = run_roofline(scheme, dev)
+
+    totals = {name: sum(counts[name] for counts in launches.values()) for name, *_ in KERNELS}
+    missing = [name for name, n in totals.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by a driven path: {missing}")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": sum(counts[name] for counts in launches.values()),
+         "launches": totals[name],
          "launches_by_path": {path: counts[name] for path, counts in launches.items()},
          **table[name]}
         for name, _, source, replaces in KERNELS
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
+
+
+def run_bench(dev) -> dict[str, int]:
+    """bench_config for the headline and run_preset for presets 1-6; each
+    run must be stable and move the counters by its runs per step times
+    its 2n steps (warm-up and timed). Returns the summed counts."""
+
+    def headline():
+        rate, state = bench.bench_config(RES, "cip", RUN_STEPS, device=dev)
+        return {"metric": f"steps_per_sec_res{RES}_cip", "value": rate, "unit": "steps/s",
+                "stable": bool(torch.isfinite(state.v).all())}
+
+    runs = [("cip", 2 * RUN_STEPS, headline)]
+    runs += [(f"preset{n}", 2 * p["steps"], lambda n=n: bench.run_preset(n, device=dev))
+             for n, p in bench._PRESETS.items()]
+    total = dict.fromkeys(read_counts(), 0)
+    for path, steps, fn in runs:
+        reset_counts()
+        row = fn()
+        counts = read_counts()
+        check_counts(counts, path, steps, f"bench[{path}]")
+        if not row["stable"]:
+            raise AssertionError(f"bench[{path}]: not stable: {row}")
+        emit({"phase": "bench", "path": path, "steps": steps, **row, "launches": counts})
+        for name, n in counts.items():
+            total[name] += n
+    return total
+
+
+def run_roofline(scheme: str, dev) -> dict[str, int]:
+    """roofline_report for `scheme` at res=1600 with the counters at 0: the
+    simulation kernels run 2·ROOFLINE_STEPS + 1 steps' worth (timing and the
+    byte ledger), and each probe launches at least once."""
+    reset_counts()
+    rep = profiling.roofline_report(RES, scheme, ROOFLINE_STEPS, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    emit({"phase": "roofline", "scheme": scheme, "res": RES, "roofline": rep,
+          "launches": counts})
+    per_step = RUNS_PER_STEP[scheme]
+    want = {name: per_step.get(name, 0) * (2 * ROOFLINE_STEPS + 1)
+            for name, *_ in KERNELS if name not in PROBES}
+    got = {name: n for name, n in counts.items() if name not in PROBES}
+    if got != want or not all(counts[name] > 0 for name in PROBES):
+        raise AssertionError(f"roofline[{scheme}]: kernel runs {counts}, expected {want} "
+                             f"and every probe > 0")
+    if not 0.0 < rep["streaming_copy_GBps"] <= PUBLISHED_GBPS:
+        raise AssertionError(f"roofline[{scheme}]: copy bandwidth {rep['streaming_copy_GBps']} "
+                             f"GB/s outside (0, {PUBLISHED_GBPS}]")
+    for name, row in rep["kernels"].items():
+        if not (row.get("ceiling_GBps", 0) > 0 and row.get("floor_ms", 0) > 0):
+            raise AssertionError(f"roofline[{scheme}]: kernel {name} lacks a ceiling or floor")
+    if "pct_of_geometry_roofline" not in rep or not rep["kernels"]:
+        raise AssertionError(f"roofline[{scheme}]: no geometry roofline")
+    return counts
 
 
 def check_parity(path: str, dev) -> None:

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: argument types, in order.
 _SIGNATURES = {
     # p_cur, p_alt, u, w, pbc_code, fluid8, p_out, p_bc, v_lim, X, Y,
@@ -58,6 +58,12 @@ _SIGNATURES = {
     # dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, X, Y, C, kk,
     # dt, 1/dx or 1/(6dx), stream
     "f2d_mac_dye_phase": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
+    # x, o, n, stream
+    "f2d_copy_add1": [_P, _P, _L, _P],
+    # plane table, n_f32, n_i8, n_out, cells, stream
+    "f2d_mix_twin": [_P, _I, _I, _I, _L, _P],
+    # x, o, n, rounds, c1, c2, stream
+    "f2d_fma_rate": [_P, _P, _L, _I, _F, _F, _P],
 }
 
 

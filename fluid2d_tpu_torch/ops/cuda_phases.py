@@ -54,6 +54,7 @@ from __future__ import annotations
 import torch
 
 from fluid2d_tpu_torch.ops.advection import advect_kk, advect_upwind
+from fluid2d_tpu_torch.ops import launch as _launch
 from fluid2d_tpu_torch.ops.cip import (
     cip_advect,
     diff2_sum,
@@ -61,7 +62,14 @@ from fluid2d_tpu_torch.ops.cip import (
     non_advection_grad,
     non_advection_velocity,
 )
-from fluid2d_tpu_torch.ops.launch import launch, on_cpu, recip32, require
+from fluid2d_tpu_torch.ops.launch import (
+    launch,
+    log_traffic,
+    on_cpu,
+    operand_bytes,
+    recip32,
+    require,
+)
 from fluid2d_tpu_torch.ops.limiters import clamp_field
 from fluid2d_tpu_torch.ops.stencil import diff_x, diff_y
 from fluid2d_tpu_torch.ops.vorticity import apply_confinement
@@ -96,6 +104,8 @@ def confinement_plain(v, v_alt, fluid8, dt: float, weight: float, dx: float):
 def confinement_cuda(v, v_alt, fluid8, dt: float, weight: float, dx: float):
     """Vorticity confinement plus swap: ``v + dt·ε·f`` at fluid cells,
     ``v_alt`` elsewhere; the new alternate is the input `v` (no copy)."""
+    if _launch.TRAFFIC_LOG is not None:
+        log_traffic("confinement", operand_bytes(v, v_alt, fluid8) + operand_bytes(v))
     if on_cpu(v, "confinement_cuda"):
         return confinement_plain(v, v_alt, fluid8, dt, weight, dx)
     dev = v.device
@@ -161,6 +171,11 @@ def cip_velocity_phase_cuda(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
     """Whole CIP velocity phase: BC, non-advection, gradient update, CIP
     advection. Returns ``(v_cur, vx_cur, vy_cur, v_na, vx_na, vy_na)``;
     the last three become the alternate buffers."""
+    if _launch.TRAFFIC_LOG is not None:
+        log_traffic("cip_velocity_phase",
+                    operand_bytes(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene.bc_const,
+                                  scene.vbc_code, scene.not_wall8, scene.fluid8)
+                    + 6 * operand_bytes(v))
     if on_cpu(v, "cip_velocity_phase_cuda"):
         return cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene, re, dt, dx)
     dev = v.device
@@ -215,6 +230,11 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
     """Whole CIP dye phase: inflow BC, diffusion, gradient update, CIP
     advection by `vel` (the limited velocity), [0, 1] clamp. Returns
     ``(dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na)``."""
+    if _launch.TRAFFIC_LOG is not None:
+        log_traffic("cip_dye_phase",
+                    operand_bytes(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene.bc_dye,
+                                  scene.inflow8, scene.not_wall8, scene.fluid8)
+                    + 6 * operand_bytes(dye))
     if on_cpu(dye, "cip_dye_phase_cuda"):
         return cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
                                    re, dt, dx)
@@ -286,6 +306,10 @@ def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: floa
     """Whole MAC velocity phase: velocity BC, then the upwind or KK
     momentum update at fluid cells. Returns ``(v_cur, vc)``."""
     _advect_fn(scheme)
+    if _launch.TRAFFIC_LOG is not None:
+        log_traffic(f"mac_velocity_phase_{scheme}",
+                    operand_bytes(v, p, v_alt, scene.bc_const, scene.vbc_code, scene.fluid8)
+                    + 2 * operand_bytes(v))
     if on_cpu(v, "mac_velocity_phase_cuda"):
         return mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx)
     dev = v.device
@@ -331,6 +355,10 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
     (the limited velocity) at fluid cells, [0, 1] clamp. Returns
     ``(dye_cur, dc)``."""
     _advect_fn(scheme)
+    if _launch.TRAFFIC_LOG is not None:
+        log_traffic(f"mac_dye_phase_{scheme}",
+                    operand_bytes(dye, dye_alt, vel, scene.bc_dye, scene.inflow8, scene.fluid8)
+                    + 2 * operand_bytes(dye))
     if on_cpu(dye, "mac_dye_phase_cuda"):
         return mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx)
     dev = dye.device

@@ -38,7 +38,15 @@ from __future__ import annotations
 
 import torch
 
-from fluid2d_tpu_torch.ops.launch import launch, on_cpu, recip32, require
+from fluid2d_tpu_torch.ops import launch as _launch
+from fluid2d_tpu_torch.ops.launch import (
+    launch,
+    log_traffic,
+    on_cpu,
+    operand_bytes,
+    recip32,
+    require,
+)
 from fluid2d_tpu_torch.ops.limiters import limit_vector_norm
 from fluid2d_tpu_torch.ops.pressure import jacobi_pressure_iteration, sor_pressure_iteration
 
@@ -51,6 +59,14 @@ __all__ = [
 ]
 
 JACOBI_MAX_ITERS = 4  # iterations one jacobi_iteration_cuda call runs at most
+
+
+def _log_pressure(name, p_cur, p_alt, u, w, code8, mask8, v_limit) -> None:
+    """Ledger entry of a pressure call: six input planes, the output pair,
+    and the limited (2, X, Y) velocity when the limiter rides along."""
+    outs = 2 * operand_bytes(p_cur) + (0 if v_limit is None else operand_bytes(u, w))
+    log_traffic(name + ("" if v_limit is None else "_v_limit"),
+                operand_bytes(p_cur, p_alt, u, w, code8, mask8) + outs)
 
 
 class _SorMasks:
@@ -89,6 +105,8 @@ def sor_iteration_cuda(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: f
     ``csrc/sor.cu``; anything the kernel does not take (dtype, shape,
     layout, mixed devices) raises. Outputs are fresh tensors.
     """
+    if _launch.TRAFFIC_LOG is not None:
+        _log_pressure("sor_iteration", p_cur, p_alt, u, w, pbc_code, fluid8, v_limit)
     if on_cpu(p_cur, "sor_iteration_cuda"):
         return sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega, dt, dx,
                                    v_limit=v_limit)
@@ -168,6 +186,9 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
     are fresh tensors.
     """
     _check_n_iters(n_iters)
+    if _launch.TRAFFIC_LOG is not None:
+        _log_pressure(f"jacobi_iteration_n{n_iters}", p_cur, p_alt, u, w, pbc_code, not_wall8,
+                      v_limit)
     if on_cpu(p_cur, "jacobi_iteration_cuda"):
         return jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt, dx,
                                       n_iters=n_iters, v_limit=v_limit)

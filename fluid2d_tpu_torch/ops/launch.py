@@ -4,6 +4,14 @@ A wrapper hands raw pointers to a C entry point, so everything the
 kernel assumes is checked here first: device, dtype, shape, contiguity.
 The kernel library is imported and built only when a CUDA tensor is
 launched on, never when a module is imported.
+
+The byte ledger: while ``TRAFFIC_LOG`` is a list, every phase wrapper
+appends ``(kernel name with variant, bytes)`` on entry, before it routes by
+device, so the ledger is the same whether the plain version or the kernel
+runs. The bytes are those of the input and output operands of the kernel's
+C entry point (scratch excluded). ``None`` (the default) logs nothing, and
+each wrapper tests it before it counts a byte, so the ledger costs one
+attribute read per call while it is off.
 """
 
 from __future__ import annotations
@@ -13,7 +21,21 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ["on_cpu", "require", "launch", "recip32"]
+__all__ = ["on_cpu", "require", "launch", "recip32", "TRAFFIC_LOG", "log_traffic",
+           "operand_bytes"]
+
+TRAFFIC_LOG: list[tuple[str, int]] | None = None
+
+
+def operand_bytes(*tensors: torch.Tensor) -> int:
+    """Bytes of the given operands, each counted once in full."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def log_traffic(name: str, nbytes: int) -> None:
+    """Append ``(name, nbytes)`` to ``TRAFFIC_LOG`` when it is a list."""
+    if TRAFFIC_LOG is not None:
+        TRAFFIC_LOG.append((name, nbytes))
 
 
 def recip32(x: float) -> float:

@@ -8,7 +8,11 @@ installed:
 
 Tolerances: a kernel's outputs within 1e-5·max(1, |ref|max) of the plain
 version (the same f32 algebra; nvcc may contract a*b+c into an FMA); a
-multi-step run within 2e-5·max(1, |ref|max) on every state leaf.
+multi-step run within 2e-5·max(1, |ref|max) on every state leaf. The
+roofline's probes: the copy (C2) bit-equal, the mix twin (C3) and the FMA
+chains (C4, at a shallow 64 passes) within 1e-5·max(1, |ref|max); C4 at
+its full 8192 passes within cuda_probes.fma_rate_error_bound of the
+float64 plain version.
 """
 
 import numpy as np
@@ -16,7 +20,8 @@ import pytest
 import torch
 
 from fluid2d_tpu_torch import SimConfig, get_scene, init_state, make_run_fn
-from fluid2d_tpu_torch.ops import cuda_phases, cuda_stencil
+from fluid2d_tpu_torch.ops import cuda_phases, cuda_probes, cuda_stencil
+from fluid2d_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -139,3 +144,72 @@ def test_cuda_run_matches_eager_run(cuda_device, config):
     got = [leaf for leaf in outs["cuda"] if leaf is not None]
     ref = [leaf for leaf in outs["eager"] if leaf is not None]
     _assert_close([g.float() for g in got], [r.float() for r in ref], "state", 2e-5)
+
+
+# --- the roofline's probes (C2-C4) ----------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4 * 1000, 4 * 1000 + 3, 1, 2])
+def test_cuda_copy_add1_is_bit_equal(cuda_device, n):
+    """C2 over whole float4s and a ragged tail: bit-equal to x + 1."""
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    x = torch.randn(n, generator=gen).to(cuda_device)
+    before = cuda_probes.copy_add1_cuda.launches
+    got = cuda_probes.copy_add1_cuda(x)
+    out = torch.empty_like(x)
+    into = cuda_probes.copy_add1_cuda(x, out=out)
+    torch.cuda.synchronize()
+    assert cuda_probes.copy_add1_cuda.launches == before + 2
+    assert into is out
+    assert torch.equal(got, x + 1) and torch.equal(out, x + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["cip_dye_phase", "sor_iteration_v_limit"])
+def test_cuda_mix_twin_matches_plain(cuda_device, mix):
+    """C3 on two registered mixes at a ragged grid: within 1e-5 of the
+    plain sum (the same additions in the same order)."""
+    ops = profiling.twin_operands(mix, 2 * RAGGED_RES, RAGGED_RES, cuda_device)
+    before = cuda_probes.mix_twin_cuda.launches
+    got = cuda_probes.mix_twin_cuda(ops)
+    torch.cuda.synchronize()
+    assert cuda_probes.mix_twin_cuda.launches == before + 1
+    assert len(got) == sum(profiling._KERNEL_MIXES[mix]["f32_out"])
+    _assert_close(got, cuda_probes.mix_twin_plain(ops), mix, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_fma_rate_matches_plain_at_shallow_depth(cuda_device):
+    """C4 at 64 passes: one rounding per FMA against the plain version's
+    two, within 1e-5·max(1, |ref|max)."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.rand((256, 1024), generator=gen).to(cuda_device)
+    before = cuda_probes.fma_rate_cuda.launches
+    got = cuda_probes.fma_rate_cuda(x, 64)
+    torch.cuda.synchronize()
+    assert cuda_probes.fma_rate_cuda.launches == before + 1
+    _assert_close([got], [cuda_probes.fma_rate_plain(x, 64)], "fma_rate", 1e-5)
+    with pytest.raises(AssertionError, match="max error"):  # one round short is seen
+        _assert_close([got], [cuda_probes.fma_rate_plain(x, 56)], "fma_rate", 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_fma_rate_within_rounding_bound_at_full_depth(cuda_device):
+    """C4 at the timed 8192 passes against the plain version in float64:
+    within fma_rate_error_bound, and one round short is beyond it."""
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    x = torch.rand((64, 1024), generator=gen).to(cuda_device)
+    got = cuda_probes.fma_rate_cuda(x, 8192).double()
+    bound = cuda_probes.fma_rate_error_bound(x, 8192)
+    assert float((got - cuda_probes.fma_rate_plain(x.double(), 8192)).abs().max()) <= bound
+    assert float((got - cuda_probes.fma_rate_plain(x.double(), 8184)).abs().min()) > bound
+
+
+@pytest.mark.cuda
+def test_cuda_probe_measurements_are_positive(cuda_device):
+    assert profiling.measure_hbm_bandwidth(mbytes=64, iters=20, device=cuda_device) > 0
+    rate, nbytes = profiling.measure_mix_ceiling("confinement", 128, 64, iters=10,
+                                                 device=cuda_device)
+    assert rate > 0 and nbytes == profiling.mix_bytes("confinement", 128, 64)
+    assert profiling.measure_fma_throughput(passes=64, iters=2, device=cuda_device) > 0

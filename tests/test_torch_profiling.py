@@ -1,0 +1,222 @@
+"""The port's roofline accounting (fluid2d_tpu_torch/utils/profiling.py)
+against the JAX package's, on the CPU:
+
+* ``step_min_bytes`` equals the JAX package's exactly, for every scheme,
+  dye and confinement switch and pressure iteration count;
+* the byte ledger (``ops/launch.py:TRAFFIC_LOG``) of one step: every
+  kernel variant a configuration runs logs exactly its registered operand
+  mix (``mix_bytes``), the counterpart of tests/test_profiling.py's
+  registry guard; ``kernels="eager"`` logs nothing;
+* the element-op counter on toy functions (the counterpart of the JAX
+  package's Pallas toy kernels) and on one step;
+* the probes' plain versions against NumPy, the FMA chains' checks
+  against a missing round, and the probes' CPU behaviour
+  (the FMA probe declines, the copy probe times its plain version);
+* ``roofline_report`` keys on the CPU, and ``trace`` writing a file.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from fluid2d_tpu.config import SimConfig as JaxConfig
+from fluid2d_tpu.utils import profiling as jax_profiling
+import fluid2d_tpu_torch as ft
+from fluid2d_tpu_torch.ops import cuda_probes, launch
+from fluid2d_tpu_torch.utils import profiling
+
+torch.set_num_threads(1)
+
+RES = 32  # scene 2 on a (64, 32) grid
+
+
+@pytest.mark.parametrize("n_pressure_iter", [1, 2, 6])
+@pytest.mark.parametrize("vor_eps", [None, 5.0])
+@pytest.mark.parametrize("enable_dye", [False, True])
+@pytest.mark.parametrize("scheme", ["upwind", "kk", "cip"])
+def test_step_min_bytes_matches_jax(scheme, enable_dye, vor_eps, n_pressure_iter):
+    kw = dict(resolution=64, scheme=scheme, enable_dye=enable_dye, vor_eps=vor_eps,
+              n_pressure_iter=n_pressure_iter)
+    got = profiling.step_min_bytes(ft.SimConfig.create(**kw), 128, 64)
+    assert got == jax_profiling.step_min_bytes(JaxConfig.create(**kw), 128, 64)
+    assert got > 0
+
+
+# configuration → the kernel variants one step of it runs
+LEDGER_CONFIGS = {
+    "cip": ({}, {"cip_velocity_phase", "confinement", "sor_iteration",
+                 "sor_iteration_v_limit", "cip_dye_phase"}),
+    "upwind": ({"scheme": "upwind"}, {"mac_velocity_phase_upwind", "confinement",
+                                      "sor_iteration", "sor_iteration_v_limit",
+                                      "mac_dye_phase_upwind"}),
+    "kk": ({"scheme": "kk"}, {"mac_velocity_phase_kk", "confinement", "sor_iteration",
+                              "sor_iteration_v_limit", "mac_dye_phase_kk"}),
+    "cip_jacobi2": ({"pressure_solver": "jacobi"},
+                    {"cip_velocity_phase", "confinement", "jacobi_iteration_n2_v_limit",
+                     "cip_dye_phase"}),
+    "kk_jacobi7": ({"scheme": "kk", "pressure_solver": "jacobi", "n_pressure_iter": 7},
+                   {"mac_velocity_phase_kk", "confinement", "jacobi_iteration_n4",
+                    "jacobi_iteration_n3_v_limit", "mac_dye_phase_kk"}),
+    "upwind_jacobi1_bare": ({"scheme": "upwind", "pressure_solver": "jacobi",
+                             "n_pressure_iter": 1, "vor_eps": None, "enable_dye": False},
+                            {"mac_velocity_phase_upwind", "jacobi_iteration_n1_v_limit"}),
+}
+
+
+def _step_ledger(cfg) -> list[tuple[str, int]]:
+    scene = ft.get_scene(2, RES, "cpu")
+    state = ft.init_state(scene, cfg, "cpu")
+    launch.TRAFFIC_LOG = ledger = []
+    try:
+        ft.make_step_fn(cfg)(state, scene)
+    finally:
+        launch.TRAFFIC_LOG = None
+    return ledger
+
+
+@pytest.mark.parametrize("config", list(LEDGER_CONFIGS))
+def test_byte_ledger_matches_mix_registry(config):
+    kw, names = LEDGER_CONFIGS[config]
+    cfg = ft.SimConfig.create(resolution=RES, **kw)
+    ledger = _step_ledger(cfg)
+    assert {name for name, _ in ledger} == names
+    for name, nbytes in ledger:
+        assert nbytes == profiling.mix_bytes(name, 2 * RES, RES), name
+    per_kernel = profiling.step_kernel_bytes(cfg, RES)
+    assert set(per_kernel) == names
+    assert sum(per_kernel.values()) == sum(n for _, n in ledger)
+
+
+def test_byte_ledger_is_off_by_default_and_empty_for_eager():
+    assert launch.TRAFFIC_LOG is None
+    cfg = ft.SimConfig.create(resolution=RES, kernels="eager")
+    assert _step_ledger(cfg) == []
+    assert profiling.step_kernel_bytes(cfg, RES) == {}
+    assert profiling.mix_bytes("no_such_kernel", 64, 32) is None
+    assert profiling.measure_mix_ceiling("no_such_kernel", 64, 32, device="cpu") is None
+
+
+def test_elop_counter_counts_a_mul_add_exactly():
+    x = torch.ones((32, 128))
+    total, per_kernel = profiling.collect_elops(lambda t: t * 2.0 + 1.0, x)
+    assert total == 2 * 32 * 128
+    assert per_kernel == {}
+
+
+def test_elop_counter_weighs_divide_above_multiply():
+    x = torch.ones((8, 128))
+    div, _ = profiling.collect_elops(lambda t: t / 3.0, x)
+    mul, _ = profiling.collect_elops(lambda t: t * 3.0, x)
+    assert div > mul > 0
+
+
+def test_step_elops_align_with_the_byte_ledger():
+    cfg = ft.SimConfig.create(resolution=RES)
+    elops = profiling.step_kernel_elops(cfg, RES)
+    assert set(elops) == set(profiling.step_kernel_bytes(cfg, RES))
+    assert all(v > 0 for v in elops.values())
+    assert elops["cip_dye_phase"] > elops["confinement"]
+
+
+def test_fma_probe_declines_on_cpu():
+    assert profiling.measure_fma_throughput(device="cpu") is None
+
+
+def test_copy_probe_times_the_plain_version_on_cpu():
+    assert profiling.measure_hbm_bandwidth(mbytes=2, iters=10, device="cpu") > 0
+
+
+def test_copy_plain_matches_numpy():
+    a = np.random.default_rng(0).standard_normal(4 * 100 + 3).astype(np.float32)
+    got = cuda_probes.copy_add1_cuda(torch.from_numpy(a.copy()))
+    np.testing.assert_array_equal(got.numpy(), a + np.float32(1))
+    out = torch.empty(a.shape)
+    assert cuda_probes.copy_add1_cuda(torch.from_numpy(a.copy()), out=out) is out
+    np.testing.assert_array_equal(out.numpy(), a + np.float32(1))
+
+
+@pytest.mark.parametrize("mix", ["cip_velocity_phase", "mac_dye_phase_kk",
+                                 "jacobi_iteration_n4_v_limit"])
+def test_mix_twin_plain_matches_numpy(mix):
+    """The plain twin is the sum of the inputs in order, f32 then int8,
+    on every output plane: the same float32 additions as NumPy's."""
+    ops = profiling.twin_operands(mix, 2 * RES, RES, "cpu")
+    got = cuda_probes.mix_twin_cuda(ops)
+    acc = np.zeros((2 * RES, RES), np.float32)
+    for t in ops.f32_in:
+        acc = acc + t.numpy()
+    for t in ops.i8_in:
+        acc = acc + t.numpy().astype(np.float32)
+    desc = profiling._KERNEL_MIXES[mix]
+    assert len(got) == sum(desc["f32_out"])
+    assert len(ops.f32_in) == sum(desc["f32_in"]) and len(ops.i8_in) == sum(desc["i8_in"])
+    for g in got:
+        np.testing.assert_array_equal(g.numpy(), acc)
+    planes = 4 * len(ops.f32_in) + len(ops.i8_in) + 4 * len(got)
+    assert profiling.mix_bytes(mix, 2 * RES, RES) == planes * 2 * RES * RES
+
+
+def test_fma_plain_matches_numpy():
+    """Eight chains of a = a·c1 + c2 (two float32 roundings a step), then
+    their sum, against NumPy's float32 arithmetic, within 1e-6."""
+    x = np.random.default_rng(1).random((16, 64)).astype(np.float32)
+    passes, c1, c2 = 64, np.float32(1.000001), np.float32(1e-3)
+    got = cuda_probes.fma_rate_cuda(torch.from_numpy(x), passes).numpy()
+    accs = [x * np.float32(1.0 + 1e-7 * c) for c in range(cuda_probes.FMA_CHAINS)]
+    for _ in range(passes // cuda_probes.FMA_CHAINS):
+        accs = [a * c1 + c2 for a in accs]
+    ref = accs[0]
+    for a in accs[1:]:
+        ref = ref + a
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * max(1.0, float(np.abs(ref).max())))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_probes.fma_rate_cuda(torch.from_numpy(x), 12)
+
+
+@pytest.mark.parametrize("passes", [64, 8192])
+def test_fma_checks_see_one_missing_round(passes):
+    """The chains' constants make one round more than the card's checks
+    allow: one round short moves every element of the float64 plain
+    version beyond fma_rate_error_bound, and the float32 plain version
+    beyond 1e-5·max(1, |ref|max); the float32 plain version itself (two
+    roundings a step, where the kernel takes one) stays within the bound."""
+    x = torch.from_numpy(np.random.default_rng(2).random((8, 64)).astype(np.float32))
+    short = passes - cuda_probes.FMA_CHAINS
+    bound = cuda_probes.fma_rate_error_bound(x, passes)
+    exact = cuda_probes.fma_rate_plain(x.double(), passes)
+    assert float((exact - cuda_probes.fma_rate_plain(x.double(), short)).abs().min()) > bound
+    got = cuda_probes.fma_rate_plain(x, passes)
+    assert float((got.double() - exact).abs().max()) <= bound
+    miss = float((got - cuda_probes.fma_rate_plain(x, short)).abs().max())
+    assert miss > 1e-5 * max(1.0, float(got.abs().max()))
+
+
+REPORT_KEYS = {
+    "steps_per_sec", "ms_per_step", "streaming_copy_GBps", "min_traffic_MB_per_step",
+    "kernel_traffic_MB_per_step", "copy_roofline_ms_per_step", "pct_of_copy_roofline",
+    "kernels", "geometry_floor_ms_per_step", "pct_of_geometry_roofline", "hbm_note", "device",
+}
+
+
+def test_roofline_report_keys_on_cpu():
+    rep = profiling.roofline_report(res=16, steps=2, device="cpu")
+    assert set(rep) == REPORT_KEYS  # no fma_rate_Gelops: the FMA probe declines on the CPU
+    assert rep["device"] == "cpu"
+    json.dumps(rep)
+    assert set(rep["kernels"]) == LEDGER_CONFIGS["cip"][1]
+    for name, row in rep["kernels"].items():
+        assert {"MB_per_step", "ceiling_GBps", "mem_floor_ms", "floor_ms"} <= set(row), name
+        assert row["ceiling_GBps"] > 0 and row["floor_ms"] == row["mem_floor_ms"] > 0
+    assert rep["geometry_floor_ms_per_step"] == pytest.approx(
+        sum(r["floor_ms"] for r in rep["kernels"].values()))
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    with profiling.trace(tmp_path / "trace") as prof:
+        (torch.arange(8.0) * 2).sum()
+    files = list((tmp_path / "trace").glob("*.json"))
+    assert files and files[0].stat().st_size > 0
+    assert json.loads(files[0].read_text())["traceEvents"]
+    assert prof.key_averages()

@@ -16,7 +16,8 @@ configurations on stderr.
 ``--device`` defaults to ``cuda`` and raises when no card is there: a
 measurement never falls back to the CPU. ``--device cpu`` runs the plain
 PyTorch versions (a check of the harness, not a measurement of the card).
-``--dtype bfloat16`` is refused until bf16 transport is ported.
+``--dtype bfloat16`` stores the state in bf16 (arithmetic stays float32);
+its metrics carry the suffix ``_bfloat16``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import sys
 import torch
 
 from fluid2d_tpu_torch.config import SimConfig
-from fluid2d_tpu_torch.models.simulator import make_run_fn
+from fluid2d_tpu_torch.models.simulator import make_run_fn, scene_for_dtype
 from fluid2d_tpu_torch.scenes.compile import get_scene
 from fluid2d_tpu_torch.state import SimState, init_state
 from fluid2d_tpu_torch.utils.profiling import device_name, roofline_report, time_steps
@@ -55,7 +56,7 @@ def bench_config(res: int, scheme: str, steps: int, *, enable_dye=True, vor_eps=
     dev = resolve_device(device)
     cfg = SimConfig.create(resolution=res, re=re, dt=dt, scheme=scheme, vor_eps=vor_eps,
                            enable_dye=enable_dye, dtype=dtype)
-    scene = get_scene(bc, res, dev)
+    scene = scene_for_dtype(get_scene(bc, res, dev), cfg)
     sec_per_step, state = time_steps(make_run_fn(cfg), init_state(scene, cfg, dev), scene,
                                      steps)
     return 1.0 / sec_per_step, state
@@ -112,7 +113,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--scheme", type=str, default="cip", choices=["upwind", "kk", "cip"])
     parser.add_argument("--steps", type=int, default=200)
     parser.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
-                        help="Transport dtype (only float32 is ported)")
+                        help="Transport (storage) dtype of the state; arithmetic is float32")
     parser.add_argument("--all", action="store_true", help="Print a side table of configs")
     parser.add_argument("--config", type=str, default=None, help="Preset number 1..6, or 'all'")
     parser.add_argument("--roofline", action="store_true",
@@ -141,7 +142,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.all:
         for res, steps in ((400, 2000), (800, 1000), (1600, 400), (4096, 80)):
             for scheme in ("upwind", "kk", "cip"):
-                rate, _ = bench_config(res, scheme, steps, device=dev)
+                rate, _ = bench_config(res, scheme, steps, dtype=args.dtype, device=dev)
                 print(f"# res={res:5d} scheme={scheme:6s}: {rate:9.1f} steps/s", file=sys.stderr)
 
     rate, state = bench_config(args.res, args.scheme, args.steps, dtype=args.dtype, device=dev)

@@ -6,9 +6,10 @@ The same frozen, hashable config with the same defaults. What differs:
   plain PyTorch versions: ``"auto"`` uses the kernels for CUDA tensors and
   the plain versions for CPU tensors, ``"cuda"`` requires CUDA tensors,
   ``"eager"`` runs the plain versions everywhere (the comparison path).
-* All three schemes (``upwind``, ``kk``, ``cip``) and both pressure
-  solvers (``sor``, ``jacobi``) are ported; only float32 state is, so
-  ``dtype="bfloat16"`` is refused with an error that says so.
+* All three schemes (``upwind``, ``kk``, ``cip``), both pressure solvers
+  (``sor``, ``jacobi``) and both transport dtypes (``float32``,
+  ``bfloat16``: the state stored in bf16, all arithmetic float32) are
+  ported; any other dtype is refused with the JAX package's message.
 """
 
 from __future__ import annotations
@@ -71,9 +72,6 @@ class SimConfig:
             raise ValueError(msg)
         if dtype not in ("float32", "bfloat16"):
             msg = f"Unknown transport dtype: {dtype}"
-            raise ValueError(msg)
-        if dtype != "float32":
-            msg = f"transport dtype {dtype!r} is not ported to PyTorch yet (only 'float32')"
             raise ValueError(msg)
         if kernels not in KERNEL_MODES:
             msg = f"Unknown kernels mode: {kernels} (valid: {', '.join(KERNEL_MODES)})"

@@ -24,15 +24,17 @@ struct CipCell {
   float f, fx, fy;
 };
 
-// f, fx, fy: one channel's planes; u, w: the carrying velocity's planes.
+// f, fx, fy: one channel's float planes (the phase's non-advected values);
+// u, w: the carrying velocity's planes, of storage type V.
+template <typename V>
 __device__ __forceinline__ CipCell cip_advect_cell(const float* __restrict__ f,
                                                    const float* __restrict__ fx,
                                                    const float* __restrict__ fy,
-                                                   const float* __restrict__ u,
-                                                   const float* __restrict__ w, const Grid& g,
+                                                   const V* __restrict__ u,
+                                                   const V* __restrict__ w, const Grid& g,
                                                    int i, int j, const CipConsts& c) {
   const long long k = (long long)i * g.Y + j;
-  const float uc = u[k], wc = w[k];
+  const float uc = ld(u, k), wc = ld(w, k);
   // NaN compares false: a NaN velocity takes the +1 branch, like sign().
   const bool up_x = !(uc < 0.0f);
   const bool up_y = !(wc < 0.0f);
@@ -70,10 +72,10 @@ __device__ __forceinline__ CipCell cip_advect_cell(const float* __restrict__ f,
   const float Fx = (3.0f * a * X + 2.0f * cc * Y + 2.0f * e) * X + (d * Y + gg) * Y + fx0;
   const float Fy = (3.0f * b * Y + 2.0f * d * X + 2.0f * f_c) * Y + (cc * X + gg) * X + fy0;
 
-  const float dudx = 0.5f * (u[g.at(i + 1, j)] - u[g.at(i - 1, j)]) * c.inv_dx;
-  const float dwdx = 0.5f * (w[g.at(i + 1, j)] - w[g.at(i - 1, j)]) * c.inv_dx;
-  const float dudy = 0.5f * (u[g.at(i, j + 1)] - u[g.at(i, j - 1)]) * c.inv_dx;
-  const float dwdy = 0.5f * (w[g.at(i, j + 1)] - w[g.at(i, j - 1)]) * c.inv_dx;
+  const float dudx = 0.5f * (ld(u, g.at(i + 1, j)) - ld(u, g.at(i - 1, j))) * c.inv_dx;
+  const float dwdx = 0.5f * (ld(w, g.at(i + 1, j)) - ld(w, g.at(i - 1, j))) * c.inv_dx;
+  const float dudy = 0.5f * (ld(u, g.at(i, j + 1)) - ld(u, g.at(i, j - 1))) * c.inv_dx;
+  const float dwdy = 0.5f * (ld(w, g.at(i, j + 1)) - ld(w, g.at(i, j - 1))) * c.inv_dx;
   out.fx = Fx - c.dt * (Fx * dudx + Fy * dwdx) * 0.5f;
   out.fy = Fy - c.dt * (Fx * dudy + Fy * dwdy) * 0.5f;
   return out;

@@ -16,29 +16,38 @@
 // The velocity phase carries by its own f_na; the dye phase by the limited
 // velocity it is given, and clamps the advected dye to [0, 1]. The BC
 // kernels are those of bc.cuh, shared with the MAC phases.
+//
+// Storage type S (common.cuh): the state's planes, the scene's constants and
+// the six outputs are S; f_bc and the three f_na planes, which later launches
+// read, are float. For S = float the f_na planes are the alternate outputs
+// themselves; for S = bf16 they are scratch, and stages 2 and 3 write the
+// rounded alternates beside them.
 #include "bc.cuh"
 #include "cip_advect.cuh"
 #include "common.cuh"
 
+using f2d::bf16;
 using f2d::CipConsts;
 using f2d::Grid;
+using f2d::ld;
 
 namespace {
 
 // f_bc + (−∇p + ∇²f/Re)·dt (velocity, p given) or f_bc + (∇²f/Re)·dt
 // (dye, p null) at not-wall cells; the alternate buffer elsewhere.
-__global__ void non_advection_kernel(const float* __restrict__ f_bc,
-                                     const float* __restrict__ p,
-                                     const float* __restrict__ alt,
+template <typename S>
+__global__ void non_advection_kernel(const float* __restrict__ f_bc, const S* __restrict__ p,
+                                     const S* __restrict__ alt,
                                      const int8_t* __restrict__ not_wall,
-                                     float* __restrict__ out, Grid g, CipConsts c) {
+                                     float* __restrict__ out, S* __restrict__ out_s, Grid g,
+                                     CipConsts c) {
   int i, j;
   if (!f2d::cell_of(g, i, j)) return;
   const int ch = blockIdx.z;
   const long long k = (long long)i * g.Y + j;
   const long long kc = ch * g.plane() + k;
   if (not_wall[k] == 0) {
-    out[kc] = alt[kc];
+    f2d::st2(out, out_s, kc, ld(alt, kc));
     return;
   }
   const float* f = f_bc + ch * g.plane();
@@ -46,49 +55,55 @@ __global__ void non_advection_kernel(const float* __restrict__ f_bc,
   const float lap = (f[g.at(i + 1, j)] - 2.0f * f0 + f[g.at(i - 1, j)]) * c.inv_dx2
                     + (f[g.at(i, j + 1)] - 2.0f * f0 + f[g.at(i, j - 1)]) * c.inv_dx2;
   if (p != nullptr) {
-    const float gp = ch == 0 ? 0.5f * (p[g.at(i + 1, j)] - p[g.at(i - 1, j)]) * c.inv_dx
-                             : 0.5f * (p[g.at(i, j + 1)] - p[g.at(i, j - 1)]) * c.inv_dx;
+    const float gp = ch == 0 ? 0.5f * (ld(p, g.at(i + 1, j)) - ld(p, g.at(i - 1, j))) * c.inv_dx
+                             : 0.5f * (ld(p, g.at(i, j + 1)) - ld(p, g.at(i, j - 1))) * c.inv_dx;
     const float rhs = -gp + lap * c.inv_re;
-    out[kc] = f0 + rhs * c.dt;
+    f2d::st2(out, out_s, kc, f0 + rhs * c.dt);
   } else {
-    out[kc] = f0 + (lap * c.inv_re) * c.dt;
+    f2d::st2(out, out_s, kc, f0 + (lap * c.inv_re) * c.dt);
   }
 }
 
 // Gradient update from the non-advection change Δ = f_na − f_bc
 // (fs/solver.py:242-261) at not-wall cells; the alternate buffers elsewhere.
+template <typename S>
 __global__ void grad_update_kernel(const float* __restrict__ f_na,
                                    const float* __restrict__ f_bc,
-                                   const float* __restrict__ gx, const float* __restrict__ gx_alt,
-                                   const float* __restrict__ gy, const float* __restrict__ gy_alt,
+                                   const S* __restrict__ gx, const S* __restrict__ gx_alt,
+                                   const S* __restrict__ gy, const S* __restrict__ gy_alt,
                                    const int8_t* __restrict__ not_wall,
                                    float* __restrict__ gx_out, float* __restrict__ gy_out,
-                                   Grid g, float inv_two_dx) {
+                                   S* __restrict__ gx_out_s, S* __restrict__ gy_out_s, Grid g,
+                                   float inv_two_dx) {
   int i, j;
   if (!f2d::cell_of(g, i, j)) return;
   const long long off = blockIdx.z * g.plane();
   const long long k = (long long)i * g.Y + j;
   if (not_wall[k] == 0) {
-    gx_out[off + k] = gx_alt[off + k];
-    gy_out[off + k] = gy_alt[off + k];
+    f2d::st2(gx_out, gx_out_s, off + k, ld(gx_alt, off + k));
+    f2d::st2(gy_out, gy_out_s, off + k, ld(gy_alt, off + k));
     return;
   }
   const float* fn = f_na + off;
   const float* fb = f_bc + off;
   const long long xp = g.at(i + 1, j), xm = g.at(i - 1, j);
   const long long yp = g.at(i, j + 1), ym = g.at(i, j - 1);
-  gx_out[off + k] = gx[off + k] + ((fn[xp] - fb[xp]) - (fn[xm] - fb[xm])) * inv_two_dx;
-  gy_out[off + k] = gy[off + k] + ((fn[yp] - fb[yp]) - (fn[ym] - fb[ym])) * inv_two_dx;
+  f2d::st2(gx_out, gx_out_s, off + k,
+           ld(gx, off + k) + ((fn[xp] - fb[xp]) - (fn[xm] - fb[xm])) * inv_two_dx);
+  f2d::st2(gy_out, gy_out_s, off + k,
+           ld(gy, off + k) + ((fn[yp] - fb[yp]) - (fn[ym] - fb[ym])) * inv_two_dx);
 }
 
 // CIP advection at fluid cells, the kept values elsewhere; clamp01 applies
-// the dye's [0, 1] clamp (fminf/fmaxf: NaN → 0) to the value output.
+// the dye's [0, 1] clamp (fminf/fmaxf: NaN → 0) to the value output. The
+// carrying velocity is of storage type V.
+template <typename S, typename V>
 __global__ void advect_kernel(const float* __restrict__ f_na, const float* __restrict__ gx_na,
-                              const float* __restrict__ gy_na, const float* __restrict__ u,
-                              const float* __restrict__ w, const int8_t* __restrict__ fluid,
-                              const float* __restrict__ keep_f, const float* __restrict__ keep_gx,
-                              const float* __restrict__ keep_gy, float* __restrict__ out_f,
-                              float* __restrict__ out_gx, float* __restrict__ out_gy, Grid g,
+                              const float* __restrict__ gy_na, const V* __restrict__ u,
+                              const V* __restrict__ w, const int8_t* __restrict__ fluid,
+                              const float* __restrict__ keep_f, const S* __restrict__ keep_gx,
+                              const S* __restrict__ keep_gy, S* __restrict__ out_f,
+                              S* __restrict__ out_gx, S* __restrict__ out_gy, Grid g,
                               CipConsts consts, int clamp01) {
   int i, j;
   if (!f2d::cell_of(g, i, j)) return;
@@ -99,12 +114,65 @@ __global__ void advect_kernel(const float* __restrict__ f_na, const float* __res
     r = f2d::cip_advect_cell(f_na + off, gx_na + off, gy_na + off, u, w, g, i, j, consts);
   } else {
     r.f = keep_f[off + k];
-    r.fx = keep_gx[off + k];
-    r.fy = keep_gy[off + k];
+    r.fx = ld(keep_gx, off + k);
+    r.fy = ld(keep_gy, off + k);
   }
-  out_f[off + k] = clamp01 ? fminf(fmaxf(r.f, 0.0f), 1.0f) : r.f;
-  out_gx[off + k] = r.fx;
-  out_gy[off + k] = r.fy;
+  f2d::st(out_f, off + k, clamp01 ? fminf(fmaxf(r.f, 0.0f), 1.0f) : r.f);
+  f2d::st(out_gx, off + k, r.fx);
+  f2d::st(out_gy, off + k, r.fy);
+}
+
+// The velocity phase. v_na32, vx_na32, vy_na32: the float f_na planes
+// (for S = float, v_na, vx_na, vy_na themselves).
+template <typename S>
+int cip_velocity_phase(const S* v, const S* p, const S* v_alt, const S* vx, const S* vx_alt,
+                       const S* vy, const S* vy_alt, const S* bc_const, const int8_t* vbc_code,
+                       const int8_t* not_wall8, const int8_t* fluid8, float* v_bc, S* v_out,
+                       S* vx_out, S* vy_out, S* v_na, S* vx_na, S* vy_na, float* v_na32,
+                       float* vx_na32, float* vy_na32, Grid g, CipConsts c, float inv_two_dx,
+                       cudaStream_t s) {
+  const long long plane = g.plane();
+  const dim3 blocks = f2d::launch_blocks(g.X, g.Y, 2), threads = f2d::launch_threads();
+  f2d::velocity_bc_kernel<S><<<blocks, threads, 0, s>>>(v, vbc_code, bc_const, v_bc, nullptr, g);
+  F2D_CHECK_LAUNCH();
+  non_advection_kernel<S><<<blocks, threads, 0, s>>>(v_bc, p, v_alt, not_wall8, v_na32, v_na, g,
+                                                     c);
+  F2D_CHECK_LAUNCH();
+  grad_update_kernel<S><<<blocks, threads, 0, s>>>(v_na32, v_bc, vx, vx_alt, vy, vy_alt,
+                                                   not_wall8, vx_na32, vy_na32, vx_na, vy_na, g,
+                                                   inv_two_dx);
+  F2D_CHECK_LAUNCH();
+  advect_kernel<S, float><<<blocks, threads, 0, s>>>(v_na32, vx_na32, vy_na32, v_na32,
+                                                     v_na32 + plane, fluid8, v_bc, vx, vy, v_out,
+                                                     vx_out, vy_out, g, c, 0);
+  F2D_CHECK_LAUNCH();
+  return 0;
+}
+
+// The dye phase; d_na32, dx_na32, dy_na32 as above.
+template <typename S>
+int cip_dye_phase(const S* dye, const S* dye_alt, const S* dyex, const S* dyex_alt,
+                  const S* dyey, const S* dyey_alt, const S* vel, const S* bc_dye,
+                  const int8_t* inflow8, const int8_t* not_wall8, const int8_t* fluid8,
+                  float* d_bc, S* d_out, S* dx_out, S* dy_out, S* d_na, S* dx_na, S* dy_na,
+                  float* d_na32, float* dx_na32, float* dy_na32, Grid g, CipConsts c,
+                  float inv_two_dx, cudaStream_t s) {
+  const long long plane = g.plane();
+  const dim3 blocks = f2d::launch_blocks(g.X, g.Y, 3), threads = f2d::launch_threads();
+  f2d::dye_bc_kernel<S><<<blocks, threads, 0, s>>>(dye, inflow8, bc_dye, d_bc, nullptr, g);
+  F2D_CHECK_LAUNCH();
+  non_advection_kernel<S><<<blocks, threads, 0, s>>>(d_bc, nullptr, dye_alt, not_wall8, d_na32,
+                                                     d_na, g, c);
+  F2D_CHECK_LAUNCH();
+  grad_update_kernel<S><<<blocks, threads, 0, s>>>(d_na32, d_bc, dyex, dyex_alt, dyey, dyey_alt,
+                                                   not_wall8, dx_na32, dy_na32, dx_na, dy_na, g,
+                                                   inv_two_dx);
+  F2D_CHECK_LAUNCH();
+  advect_kernel<S, S><<<blocks, threads, 0, s>>>(d_na32, dx_na32, dy_na32, vel, vel + plane,
+                                                 fluid8, d_bc, dyex, dyey, d_out, dx_out, dy_out,
+                                                 g, c, 1);
+  F2D_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
@@ -119,22 +187,26 @@ extern "C" int f2d_cip_velocity_phase(
     float* vy_out, float* v_na, float* vx_na, float* vy_na, int X, int Y, float dt, float dx,
     float dx2, float dx3, float inv_dx, float inv_dx2, float inv_re, float inv_two_dx,
     void* stream) {
-  const Grid g{X, Y};
-  const CipConsts c{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx};
-  const long long plane = (long long)X * Y;
-  const dim3 blocks = f2d::launch_blocks(X, Y, 2), threads = f2d::launch_threads();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  f2d::velocity_bc_kernel<<<blocks, threads, 0, s>>>(v, vbc_code, bc_const, v_bc, g);
-  F2D_CHECK_LAUNCH();
-  non_advection_kernel<<<blocks, threads, 0, s>>>(v_bc, p, v_alt, not_wall8, v_na, g, c);
-  F2D_CHECK_LAUNCH();
-  grad_update_kernel<<<blocks, threads, 0, s>>>(v_na, v_bc, vx, vx_alt, vy, vy_alt, not_wall8,
-                                                vx_na, vy_na, g, inv_two_dx);
-  F2D_CHECK_LAUNCH();
-  advect_kernel<<<blocks, threads, 0, s>>>(v_na, vx_na, vy_na, v_na, v_na + plane, fluid8, v_bc,
-                                           vx, vy, v_out, vx_out, vy_out, g, c, 0);
-  F2D_CHECK_LAUNCH();
-  return 0;
+  return cip_velocity_phase<float>(
+      v, p, v_alt, vx, vx_alt, vy, vy_alt, bc_const, vbc_code, not_wall8, fluid8, v_bc, v_out,
+      vx_out, vy_out, v_na, vx_na, vy_na, v_na, vx_na, vy_na, Grid{X, Y},
+      CipConsts{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx}, inv_two_dx,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same with bf16 fields; v_na32, vx_na32, vy_na32: (2, X, Y) float scratch.
+extern "C" int f2d_cip_velocity_phase_bf16(
+    const bf16* v, const bf16* p, const bf16* v_alt, const bf16* vx, const bf16* vx_alt,
+    const bf16* vy, const bf16* vy_alt, const bf16* bc_const, const int8_t* vbc_code,
+    const int8_t* not_wall8, const int8_t* fluid8, float* v_bc, bf16* v_out, bf16* vx_out,
+    bf16* vy_out, bf16* v_na, bf16* vx_na, bf16* vy_na, float* v_na32, float* vx_na32,
+    float* vy_na32, int X, int Y, float dt, float dx, float dx2, float dx3, float inv_dx,
+    float inv_dx2, float inv_re, float inv_two_dx, void* stream) {
+  return cip_velocity_phase<bf16>(
+      v, p, v_alt, vx, vx_alt, vy, vy_alt, bc_const, vbc_code, not_wall8, fluid8, v_bc, v_out,
+      vx_out, vy_out, v_na, vx_na, vy_na, v_na32, vx_na32, vy_na32, Grid{X, Y},
+      CipConsts{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx}, inv_two_dx,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Dye fields (3, X, Y), vel (2, X, Y); d_bc is scratch. Constants as above.
@@ -145,20 +217,24 @@ extern "C" int f2d_cip_dye_phase(
     float* d_out, float* dx_out, float* dy_out, float* d_na, float* dx_na, float* dy_na, int X,
     int Y, float dt, float dx, float dx2, float dx3, float inv_dx, float inv_dx2, float inv_re,
     float inv_two_dx, void* stream) {
-  const Grid g{X, Y};
-  const CipConsts c{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx};
-  const long long plane = (long long)X * Y;
-  const dim3 blocks = f2d::launch_blocks(X, Y, 3), threads = f2d::launch_threads();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  f2d::dye_bc_kernel<<<blocks, threads, 0, s>>>(dye, inflow8, bc_dye, d_bc, g);
-  F2D_CHECK_LAUNCH();
-  non_advection_kernel<<<blocks, threads, 0, s>>>(d_bc, nullptr, dye_alt, not_wall8, d_na, g, c);
-  F2D_CHECK_LAUNCH();
-  grad_update_kernel<<<blocks, threads, 0, s>>>(d_na, d_bc, dyex, dyex_alt, dyey, dyey_alt,
-                                                not_wall8, dx_na, dy_na, g, inv_two_dx);
-  F2D_CHECK_LAUNCH();
-  advect_kernel<<<blocks, threads, 0, s>>>(d_na, dx_na, dy_na, vel, vel + plane, fluid8, d_bc,
-                                           dyex, dyey, d_out, dx_out, dy_out, g, c, 1);
-  F2D_CHECK_LAUNCH();
-  return 0;
+  return cip_dye_phase<float>(
+      dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, bc_dye, inflow8, not_wall8, fluid8,
+      d_bc, d_out, dx_out, dy_out, d_na, dx_na, dy_na, d_na, dx_na, dy_na, Grid{X, Y},
+      CipConsts{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx}, inv_two_dx,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same with bf16 fields; d_na32, dx_na32, dy_na32: (3, X, Y) float scratch.
+extern "C" int f2d_cip_dye_phase_bf16(
+    const bf16* dye, const bf16* dye_alt, const bf16* dyex, const bf16* dyex_alt,
+    const bf16* dyey, const bf16* dyey_alt, const bf16* vel, const bf16* bc_dye,
+    const int8_t* inflow8, const int8_t* not_wall8, const int8_t* fluid8, float* d_bc,
+    bf16* d_out, bf16* dx_out, bf16* dy_out, bf16* d_na, bf16* dx_na, bf16* dy_na,
+    float* d_na32, float* dx_na32, float* dy_na32, int X, int Y, float dt, float dx, float dx2,
+    float dx3, float inv_dx, float inv_dx2, float inv_re, float inv_two_dx, void* stream) {
+  return cip_dye_phase<bf16>(
+      dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, bc_dye, inflow8, not_wall8, fluid8,
+      d_bc, d_out, dx_out, dy_out, d_na, dx_na, dy_na, d_na32, dx_na32, dy_na32, Grid{X, Y},
+      CipConsts{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx}, inv_two_dx,
+      static_cast<cudaStream_t>(stream));
 }

@@ -17,10 +17,17 @@
 // KK stencil's ±2 reads clamp at the grid ends exactly as the jnp path's
 // shifts of the computed field do (what the Pallas kernels rebuild with
 // _reclamp).
+//
+// Storage type S (common.cuh): the state's planes, the scene's constants and
+// both outputs are S. The BC'd field, which the update launch reads, is a
+// float plane: for S = float the returned alternate itself; for S = bf16 a
+// scratch plane, beside which the BC launch writes the rounded alternate.
 #include "bc.cuh"
 #include "common.cuh"
 
+using f2d::bf16;
 using f2d::Grid;
+using f2d::ld;
 
 namespace {
 
@@ -60,39 +67,39 @@ struct MacConsts {
 
 // v + dt·(−(v·∇)v − ∇p + ∇²v/Re) at fluid cells (fs/solver.py:79-107),
 // v_alt elsewhere; blockIdx.z is the component.
-template <bool kKK>
+template <bool kKK, typename S>
 __global__ void mac_velocity_update_kernel(const float* __restrict__ v_bc,
-                                           const float* __restrict__ p,
-                                           const float* __restrict__ v_alt,
+                                           const S* __restrict__ p,
+                                           const S* __restrict__ v_alt,
                                            const int8_t* __restrict__ fluid,
-                                           float* __restrict__ out, Grid g, MacConsts c) {
+                                           S* __restrict__ out, Grid g, MacConsts c) {
   int i, j;
   if (!f2d::cell_of(g, i, j)) return;
   const int ch = blockIdx.z;
   const long long k = (long long)i * g.Y + j;
   const long long kc = ch * g.plane() + k;
   if (fluid[k] == 0) {
-    out[kc] = v_alt[kc];
+    f2d::st(out, kc, ld(v_alt, kc));
     return;
   }
   const float* f = v_bc + ch * g.plane();
   const float f0 = f[k];
   const float adv = advect_term<kKK>(f, g, i, j, v_bc[k], v_bc[g.plane() + k], c.inv_adv);
-  const float gp = ch == 0 ? 0.5f * (p[g.at(i + 1, j)] - p[g.at(i - 1, j)]) * c.inv_dx
-                           : 0.5f * (p[g.at(i, j + 1)] - p[g.at(i, j - 1)]) * c.inv_dx;
+  const float gp = ch == 0 ? 0.5f * (ld(p, g.at(i + 1, j)) - ld(p, g.at(i - 1, j))) * c.inv_dx
+                           : 0.5f * (ld(p, g.at(i, j + 1)) - ld(p, g.at(i, j - 1))) * c.inv_dx;
   const float lap = (f[g.at(i + 1, j)] - 2.0f * f0 + f[g.at(i - 1, j)]) * c.inv_dx2
                     + (f[g.at(i, j + 1)] - 2.0f * f0 + f[g.at(i, j - 1)]) * c.inv_dx2;
   const float rhs = -adv - gp + lap * c.inv_re;
-  out[kc] = f0 + c.dt * rhs;
+  f2d::st(out, kc, f0 + c.dt * rhs);
 }
 
 // f_bc − dt·(vel·∇)f_bc at fluid cells (fs/solver.py:149-161), the old
 // alternate elsewhere, then the [0, 1] clamp; blockIdx.z is the channel.
-template <bool kKK>
+template <bool kKK, typename S>
 __global__ void mac_dye_update_kernel(const float* __restrict__ d_bc,
-                                      const float* __restrict__ dye_alt,
-                                      const float* __restrict__ vel,
-                                      const int8_t* __restrict__ fluid, float* __restrict__ out,
+                                      const S* __restrict__ dye_alt,
+                                      const S* __restrict__ vel,
+                                      const int8_t* __restrict__ fluid, S* __restrict__ out,
                                       Grid g, float dt, float inv_adv) {
   int i, j;
   if (!f2d::cell_of(g, i, j)) return;
@@ -101,11 +108,49 @@ __global__ void mac_dye_update_kernel(const float* __restrict__ d_bc,
   float r;
   if (fluid[k] != 0) {
     const float* f = d_bc + blockIdx.z * g.plane();
-    r = f[k] - dt * advect_term<kKK>(f, g, i, j, vel[k], vel[g.plane() + k], inv_adv);
+    r = f[k] - dt * advect_term<kKK>(f, g, i, j, ld(vel, k), ld(vel, g.plane() + k), inv_adv);
   } else {
-    r = dye_alt[kc];
+    r = ld(dye_alt, kc);
   }
-  out[kc] = fminf(fmaxf(r, 0.0f), 1.0f);
+  f2d::st(out, kc, fminf(fmaxf(r, 0.0f), 1.0f));
+}
+
+// The velocity phase; v_bc32 is the float BC'd field (v_bc itself for S = float).
+template <typename S>
+int mac_velocity_phase(const S* v, const S* p, const S* v_alt, const S* bc_const,
+                       const int8_t* vbc_code, const int8_t* fluid8, S* v_out, S* v_bc,
+                       float* v_bc32, Grid g, int kk, MacConsts c, cudaStream_t s) {
+  const dim3 blocks = f2d::launch_blocks(g.X, g.Y, 2), threads = f2d::launch_threads();
+  f2d::velocity_bc_kernel<S><<<blocks, threads, 0, s>>>(v, vbc_code, bc_const, v_bc32, v_bc, g);
+  F2D_CHECK_LAUNCH();
+  if (kk) {
+    mac_velocity_update_kernel<true, S><<<blocks, threads, 0, s>>>(v_bc32, p, v_alt, fluid8,
+                                                                   v_out, g, c);
+  } else {
+    mac_velocity_update_kernel<false, S><<<blocks, threads, 0, s>>>(v_bc32, p, v_alt, fluid8,
+                                                                    v_out, g, c);
+  }
+  F2D_CHECK_LAUNCH();
+  return 0;
+}
+
+// The dye phase; d_bc32 is the float BC'd dye (d_bc itself for S = float).
+template <typename S>
+int mac_dye_phase(const S* dye, const S* dye_alt, const S* vel, const S* bc_dye,
+                  const int8_t* inflow8, const int8_t* fluid8, S* d_out, S* d_bc, float* d_bc32,
+                  Grid g, int C, int kk, float dt, float inv_adv, cudaStream_t s) {
+  const dim3 blocks = f2d::launch_blocks(g.X, g.Y, C), threads = f2d::launch_threads();
+  f2d::dye_bc_kernel<S><<<blocks, threads, 0, s>>>(dye, inflow8, bc_dye, d_bc32, d_bc, g);
+  F2D_CHECK_LAUNCH();
+  if (kk) {
+    mac_dye_update_kernel<true, S><<<blocks, threads, 0, s>>>(d_bc32, dye_alt, vel, fluid8, d_out,
+                                                              g, dt, inv_adv);
+  } else {
+    mac_dye_update_kernel<false, S><<<blocks, threads, 0, s>>>(d_bc32, dye_alt, vel, fluid8,
+                                                               d_out, g, dt, inv_adv);
+  }
+  F2D_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
@@ -117,20 +162,21 @@ extern "C" int f2d_mac_velocity_phase(const float* v, const float* p, const floa
                                       const int8_t* fluid8, float* v_out, float* v_bc, int X,
                                       int Y, int kk, float dt, float inv_dx, float inv_adv,
                                       float inv_dx2, float inv_re, void* stream) {
-  const Grid g{X, Y};
-  const MacConsts c{dt, inv_dx, inv_adv, inv_dx2, inv_re};
-  const dim3 blocks = f2d::launch_blocks(X, Y, 2), threads = f2d::launch_threads();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  f2d::velocity_bc_kernel<<<blocks, threads, 0, s>>>(v, vbc_code, bc_const, v_bc, g);
-  F2D_CHECK_LAUNCH();
-  if (kk) {
-    mac_velocity_update_kernel<true><<<blocks, threads, 0, s>>>(v_bc, p, v_alt, fluid8, v_out, g, c);
-  } else {
-    mac_velocity_update_kernel<false><<<blocks, threads, 0, s>>>(v_bc, p, v_alt, fluid8, v_out, g,
-                                                                 c);
-  }
-  F2D_CHECK_LAUNCH();
-  return 0;
+  return mac_velocity_phase<float>(v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc, v_bc,
+                                   Grid{X, Y}, kk, MacConsts{dt, inv_dx, inv_adv, inv_dx2, inv_re},
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// The same with bf16 fields; v_bc32: (2, X, Y) float scratch.
+extern "C" int f2d_mac_velocity_phase_bf16(const bf16* v, const bf16* p, const bf16* v_alt,
+                                           const bf16* bc_const, const int8_t* vbc_code,
+                                           const int8_t* fluid8, bf16* v_out, bf16* v_bc,
+                                           float* v_bc32, int X, int Y, int kk, float dt,
+                                           float inv_dx, float inv_adv, float inv_dx2,
+                                           float inv_re, void* stream) {
+  return mac_velocity_phase<bf16>(v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc, v_bc32,
+                                  Grid{X, Y}, kk, MacConsts{dt, inv_dx, inv_adv, inv_dx2, inv_re},
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // dye, dye_alt, bc_dye, d_out, d_bc: (C, X, Y); vel: (2, X, Y), the limited
@@ -139,18 +185,16 @@ extern "C" int f2d_mac_dye_phase(const float* dye, const float* dye_alt, const f
                                  const float* bc_dye, const int8_t* inflow8,
                                  const int8_t* fluid8, float* d_out, float* d_bc, int X, int Y,
                                  int C, int kk, float dt, float inv_adv, void* stream) {
-  const Grid g{X, Y};
-  const dim3 blocks = f2d::launch_blocks(X, Y, C), threads = f2d::launch_threads();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  f2d::dye_bc_kernel<<<blocks, threads, 0, s>>>(dye, inflow8, bc_dye, d_bc, g);
-  F2D_CHECK_LAUNCH();
-  if (kk) {
-    mac_dye_update_kernel<true><<<blocks, threads, 0, s>>>(d_bc, dye_alt, vel, fluid8, d_out, g,
-                                                           dt, inv_adv);
-  } else {
-    mac_dye_update_kernel<false><<<blocks, threads, 0, s>>>(d_bc, dye_alt, vel, fluid8, d_out, g,
-                                                            dt, inv_adv);
-  }
-  F2D_CHECK_LAUNCH();
-  return 0;
+  return mac_dye_phase<float>(dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, d_bc,
+                              Grid{X, Y}, C, kk, dt, inv_adv, static_cast<cudaStream_t>(stream));
+}
+
+// The same with bf16 fields; d_bc32: (C, X, Y) float scratch.
+extern "C" int f2d_mac_dye_phase_bf16(const bf16* dye, const bf16* dye_alt, const bf16* vel,
+                                      const bf16* bc_dye, const int8_t* inflow8,
+                                      const int8_t* fluid8, bf16* d_out, bf16* d_bc,
+                                      float* d_bc32, int X, int Y, int C, int kk, float dt,
+                                      float inv_adv, void* stream) {
+  return mac_dye_phase<bf16>(dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, d_bc32,
+                             Grid{X, Y}, C, kk, dt, inv_adv, static_cast<cudaStream_t>(stream));
 }

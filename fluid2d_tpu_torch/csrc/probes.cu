@@ -20,9 +20,16 @@
 //   kernel it models: on this card a stencil's halo reads come from L1/L2, so
 //   the port's kernels have one fetch geometry and the three TPU twins become
 //   this one. Design: one thread per cell; the plane pointers come from a
-//   device table (int64: the f32 inputs, the int8 inputs, the outputs); the
-//   inputs are summed in table order and the sum is written to every output,
-//   so no read can be dropped by the compiler.
+//   device table (int64: the float inputs, the bf16 inputs, the int8
+//   inputs, the float outputs, the bf16 outputs); the inputs are summed in
+//   table order, in float, and the sum is written to every output (rounded
+//   to nearest even in a bf16 output), so no read can be dropped by the
+//   compiler. A twin of a kernel at bf16 transport (mix_twin_bf16_kernel,
+//   the probe C5c) reads and writes its state planes as bf16 and the planes
+//   the kernel keeps in float as float. The two kernels have an entry point
+//   each (f2d_mix_twin, f2d_mix_twin_bf16): the bf16 kernel's extra loops
+//   would slow a float-only twin (measured on the H100: 8–18% longer at
+//   3200×1600).
 //
 // fma_rate_kernel — eight independent chains of a = fma(a, c1, c2).
 //   Replaces profiling.py:measure_vpu_throughput (the TPU's VPU-rate probe).
@@ -33,6 +40,8 @@
 //   which a*c1 + c2 would compile to a separate multiply and add and the
 //   probe would read half the card's rate.
 #include "common.cuh"
+
+using f2d::bf16;
 
 namespace {
 
@@ -64,6 +73,24 @@ __global__ void mix_twin_kernel(const long long* __restrict__ table, int n_f32, 
     acc += (float)reinterpret_cast<const int8_t*>(table[n_f32 + a])[k];
   }
   for (int a = 0; a < n_out; ++a) reinterpret_cast<float*>(table[n_f32 + n_i8 + a])[k] = acc;
+}
+
+// The twin of a kernel at bf16 transport: bf16 planes beside the float ones.
+__global__ void mix_twin_bf16_kernel(const long long* __restrict__ table, int n_f32, int n_bf16,
+                                     int n_i8, int n_out32, int n_out16, long long cells) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= cells) return;
+  float acc = 0.0f;
+  for (int a = 0; a < n_f32; ++a) acc += reinterpret_cast<const float*>(table[a])[k];
+  for (int a = 0; a < n_bf16; ++a) {
+    acc += __bfloat162float(reinterpret_cast<const bf16*>(table[n_f32 + a])[k]);
+  }
+  const int i8 = n_f32 + n_bf16;
+  for (int a = 0; a < n_i8; ++a) acc += (float)reinterpret_cast<const int8_t*>(table[i8 + a])[k];
+  const int out = i8 + n_i8;
+  for (int a = 0; a < n_out32; ++a) reinterpret_cast<float*>(table[out + a])[k] = acc;
+  const bf16 acc16 = __float2bfloat16_rn(acc);
+  for (int a = 0; a < n_out16; ++a) reinterpret_cast<bf16*>(table[out + n_out32 + a])[k] = acc16;
 }
 
 __global__ void fma_rate_kernel(const float* __restrict__ x, float* __restrict__ o, long long n,
@@ -104,11 +131,21 @@ extern "C" int f2d_copy_add1(const float* x, float* o, long long n, void* stream
 }
 
 // table: device int64[n_f32 + n_i8 + n_out] of plane pointers, each plane
-// `cells` elements (float32, int8, float32 respectively).
+// `cells` elements (float, int8, float).
 extern "C" int f2d_mix_twin(const long long* table, int n_f32, int n_i8, int n_out,
                             long long cells, void* stream) {
   mix_twin_kernel<<<blocks_for(cells), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       table, n_f32, n_i8, n_out, cells);
+  F2D_CHECK_LAUNCH();
+  return 0;
+}
+
+// table: device int64[n_f32 + n_bf16 + n_i8 + n_out32 + n_out16] of plane
+// pointers, each plane `cells` elements (float, bf16, int8, float, bf16).
+extern "C" int f2d_mix_twin_bf16(const long long* table, int n_f32, int n_bf16, int n_i8,
+                                 int n_out32, int n_out16, long long cells, void* stream) {
+  mix_twin_bf16_kernel<<<blocks_for(cells), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, n_f32, n_bf16, n_i8, n_out32, n_out16, cells);
   F2D_CHECK_LAUNCH();
   return 0;
 }

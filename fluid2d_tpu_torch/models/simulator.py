@@ -20,7 +20,18 @@ from fluid2d_tpu_torch.models.mac import mac_step
 from fluid2d_tpu_torch.scenes.compile import Scene, get_scene
 from fluid2d_tpu_torch.state import SimState, init_state
 
-__all__ = ["FluidSimulator", "make_step_fn", "make_run_fn"]
+__all__ = ["FluidSimulator", "make_step_fn", "make_run_fn", "scene_for_dtype"]
+
+
+def scene_for_dtype(scene: Scene, cfg: SimConfig) -> Scene:
+    """The scene with its float planes (inflow velocity, dye colours) in the
+    transport dtype, so that every kernel operand of a phase shares one
+    storage dtype; the masks are unchanged. Identity for float32 (port of
+    ``fluid2d_tpu/models/simulator.py:30-39``)."""
+    dt = getattr(torch, cfg.dtype)
+    if scene.bc_const.dtype == dt:
+        return scene
+    return scene._replace(bc_const=scene.bc_const.to(dt), bc_dye=scene.bc_dye.to(dt))
 
 
 def make_step_fn(cfg: SimConfig):
@@ -50,7 +61,7 @@ class FluidSimulator:
     (``fs/fluid_simulator.py:60-108,128-176``), on tensors of one device."""
 
     def __init__(self, scene: Scene, cfg: SimConfig, device: torch.device | str):
-        self.scene = scene
+        self.scene = scene_for_dtype(scene, cfg)
         self.cfg = cfg
         self.state = init_state(scene, cfg, device)
         self._run = make_run_fn(cfg)
@@ -91,7 +102,8 @@ class FluidSimulator:
 
     def field_to_numpy(self) -> dict[str, np.ndarray]:
         """Reference-layout field dump (``fs/fluid_simulator.py:34-36``):
-        v → (X, Y, 2), p → (X, Y), dye → (X, Y, 3) when present."""
+        v → (X, Y, 2), p → (X, Y), dye → (X, Y, 3) when present; float32
+        whatever the transport dtype (bf16 widens exactly)."""
         st = self.state
         out = {
             "v": np.moveaxis(st.v.float().cpu().numpy(), 0, -1),

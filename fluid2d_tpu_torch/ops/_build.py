@@ -38,32 +38,53 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry points: argument types, in order.
+# C entry points: argument types, in order. A "_bf16" twin takes the same
+# arguments with bf16 field pointers, plus the float scratch it names.
 _SIGNATURES = {
     # p_cur, p_alt, u, w, pbc_code, fluid8, p_out, p_bc, v_lim, X, Y,
     # omega, 1-omega, dx, 1/(8·dt), v_limit, stream
     "f2d_sor_iteration": [_P] * 9 + [_I, _I] + [_F] * 5 + [_P],
+    # p_cur, p_alt, u, w, pbc_code, fluid8, p_out, p_bc, p_out32, p_bc32, v_lim,
+    # X, Y, in_bf16, out_bf16, omega, 1-omega, dx, 1/(8·dt), v_limit, stream
+    "f2d_sor_iteration_bf16": [_P] * 11 + [_I] * 4 + [_F] * 5 + [_P],
     # v, v_alt, fluid8, vort, vort_abs, v_out, X, Y, 1/dx, dt·ε, stream
     "f2d_confinement": [_P] * 6 + [_I, _I] + [_F] * 2 + [_P],
-    # 11 inputs, 1 scratch, 6 outputs, X, Y,
+    "f2d_confinement_bf16": [_P] * 6 + [_I, _I] + [_F] * 2 + [_P],
+    # 11 inputs, 1 scratch, 6 outputs (bf16: + 3 float scratch), X, Y,
     # dt, dx, dx², dx³, 1/dx, 1/dx², 1/re, 1/(2dx), stream
     "f2d_cip_velocity_phase": [_P] * 18 + [_I, _I] + [_F] * 8 + [_P],
+    "f2d_cip_velocity_phase_bf16": [_P] * 21 + [_I, _I] + [_F] * 8 + [_P],
     "f2d_cip_dye_phase": [_P] * 18 + [_I, _I] + [_F] * 8 + [_P],
+    "f2d_cip_dye_phase_bf16": [_P] * 21 + [_I, _I] + [_F] * 8 + [_P],
     # p_cur, p_alt, u, w, pbc_code, not_wall8, p_out, p_bc, 2 scratch, v_lim,
     # X, Y, n_iters, dx, 1/(8·dt), v_limit, stream
     "f2d_jacobi_iteration": [_P] * 11 + [_I] * 3 + [_F] * 3 + [_P],
-    # v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc, X, Y, kk,
-    # dt, 1/dx, 1/dx or 1/(6dx), 1/dx², 1/re, stream
+    # p_cur, p_alt, u, w, pbc_code, not_wall8, p_out, p_bc, p_out32, p_bc32,
+    # 2 scratch, v_lim, X, Y, n_iters, in_bf16, out_bf16, dx, 1/(8·dt),
+    # v_limit, stream
+    "f2d_jacobi_iteration_bf16": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
+    # v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc (bf16: + v_bc32),
+    # X, Y, kk, dt, 1/dx, 1/dx or 1/(6dx), 1/dx², 1/re, stream
     "f2d_mac_velocity_phase": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_P],
-    # dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, X, Y, C, kk,
-    # dt, 1/dx or 1/(6dx), stream
+    "f2d_mac_velocity_phase_bf16": [_P] * 9 + [_I] * 3 + [_F] * 5 + [_P],
+    # dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc (bf16: + d_bc32),
+    # X, Y, C, kk, dt, 1/dx or 1/(6dx), stream
     "f2d_mac_dye_phase": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
+    "f2d_mac_dye_phase_bf16": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
     # x, o, n, stream
     "f2d_copy_add1": [_P, _P, _L, _P],
     # plane table, n_f32, n_i8, n_out, cells, stream
-    "f2d_mix_twin": [_P, _I, _I, _I, _L, _P],
+    "f2d_mix_twin": [_P] + [_I] * 3 + [_L, _P],
+    # plane table, n_f32, n_bf16, n_i8, n_out32, n_out16, cells, stream
+    "f2d_mix_twin_bf16": [_P] + [_I] * 5 + [_L, _P],
     # x, o, n, rounds, c1, c2, stream
     "f2d_fma_rate": [_P, _P, _L, _I, _F, _F, _P],
+    # x, o, n (bf16: pairs), steps, mode, c1, c2, c3, stream
+    "f2d_dtype_rate": [_P, _P, _L, _I, _I, _F, _F, _F, _P],
+    "f2d_dtype_rate_bf16": [_P, _P, _L, _I, _I, _F, _F, _F, _P],
+    # x, out, cols, t, mode, stream
+    "f2d_row_copy": [_P, _P, _I, _I, _I, _P],
+    "f2d_row_copy_bf16": [_P, _P, _I, _I, _I, _P],
 }
 
 

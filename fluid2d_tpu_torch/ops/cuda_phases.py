@@ -15,7 +15,7 @@ Source notes.
   ``_cip_velocity_body``; advection ``pallas_stencil.py:768-910``).
   Kernel ``csrc/cip_phases.cu`` + ``csrc/cip_advect.cuh``: four launches
   (BC, non-advection, gradient update, advection) over both channels.
-  Bound: bytes — about 16 f32 planes read and 14 written per channel pair
+  Bound: bytes — about 16 planes read and 14 written per channel pair
   across the four launches, ~120 flops per cell in the advection.
 
 ``cip_dye_phase_cuda``
@@ -44,6 +44,13 @@ read from global memory with clamp-to-edge index math, every stage's
 result written to device memory and read back by the next launch. Tiles
 in shared memory and stage fusion are later work.
 
+Storage. The state's planes, the scene's ``bc_const`` / ``bc_dye`` and the
+outputs are float32 or bfloat16, one dtype per call (the transport dtype);
+arithmetic is float32 and each output is rounded once, where the plain
+version's ``.to(sd)`` rounds it. A stage result that a later launch reads
+stays float32 (scratch at bf16, ``csrc/common.cuh``), so the bf16 kernels
+are bit-identical to the plain versions wherever the float32 ones are.
+
 Each wrapper takes CPU tensors to its plain version and launches its
 kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
 counts kernel runs.
@@ -63,6 +70,7 @@ from fluid2d_tpu_torch.ops.cip import (
     non_advection_velocity,
 )
 from fluid2d_tpu_torch.ops.launch import (
+    entry,
     launch,
     log_traffic,
     on_cpu,
@@ -108,18 +116,19 @@ def confinement_cuda(v, v_alt, fluid8, dt: float, weight: float, dx: float):
         log_traffic("confinement", operand_bytes(v, v_alt, fluid8) + operand_bytes(v))
     if on_cpu(v, "confinement_cuda"):
         return confinement_plain(v, v_alt, fluid8, dt, weight, dx)
-    dev = v.device
+    dev, sd = v.device, v.dtype
     _, x_rows, y_cols = v.shape
     vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
+    name = entry("f2d_confinement", sd)
     ptrs = [
-        require(v, "v", vec, torch.float32, dev),
-        require(v_alt, "v_alt", vec, torch.float32, dev),
+        require(v, "v", vec, sd, dev),
+        require(v_alt, "v_alt", vec, sd, dev),
         require(fluid8, "fluid8", plane, torch.int8, dev),
     ]
     vort = torch.empty(plane, dtype=torch.float32, device=dev)
     vort_abs = torch.empty_like(vort)
     v_out = torch.empty_like(v)
-    launch("f2d_confinement", dev, *ptrs, vort.data_ptr(), vort_abs.data_ptr(),
+    launch(name, dev, *ptrs, vort.data_ptr(), vort_abs.data_ptr(),
            v_out.data_ptr(), x_rows, y_cols, recip32(dx), dt * weight)
     confinement_cuda.launches += 1
     return v_out, v
@@ -135,6 +144,15 @@ def _cip_constants(re: float, dt: float, dx: float) -> tuple[float, ...]:
     """The grid constants of ``csrc/cip_advect.cuh:CipConsts``, in order,
     rounded as the eager path rounds them."""
     return (dt, dx, dx**2, dx**3, recip32(dx), recip32(dx**2), recip32(re), recip32(2.0 * dx))
+
+
+def _wide_scratch(shape, sd, dev, n: int) -> list[torch.Tensor]:
+    """The `n` float planes a bf16 phase keeps beside its rounded outputs
+    for its later launches to read (none at float32, where the outputs are
+    those planes). The caller holds them until the launch is queued."""
+    if sd == torch.float32:
+        return []
+    return [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(n)]
 
 
 def _advect_phase(f_na, gx_na, gy_na, vel, alt_f, alt_gx, alt_gy, fluid, dt, dx):
@@ -178,27 +196,28 @@ def cip_velocity_phase_cuda(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
                     + 6 * operand_bytes(v))
     if on_cpu(v, "cip_velocity_phase_cuda"):
         return cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene, re, dt, dx)
-    dev = v.device
+    dev, sd = v.device, v.dtype
     _, x_rows, y_cols = v.shape
     vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
-    f32_, i8 = torch.float32, torch.int8
+    name, i8 = entry("f2d_cip_velocity_phase", sd), torch.int8
     ptrs = [
-        require(v, "v", vec, f32_, dev),
-        require(p, "p", plane, f32_, dev),
-        require(v_alt, "v_alt", vec, f32_, dev),
-        require(vx, "vx", vec, f32_, dev),
-        require(vx_alt, "vx_alt", vec, f32_, dev),
-        require(vy, "vy", vec, f32_, dev),
-        require(vy_alt, "vy_alt", vec, f32_, dev),
-        require(scene.bc_const, "scene.bc_const", vec, f32_, dev),
+        require(v, "v", vec, sd, dev),
+        require(p, "p", plane, sd, dev),
+        require(v_alt, "v_alt", vec, sd, dev),
+        require(vx, "vx", vec, sd, dev),
+        require(vx_alt, "vx_alt", vec, sd, dev),
+        require(vy, "vy", vec, sd, dev),
+        require(vy_alt, "vy_alt", vec, sd, dev),
+        require(scene.bc_const, "scene.bc_const", vec, sd, dev),
         require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
         require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
         require(scene.fluid8, "scene.fluid8", plane, i8, dev),
     ]
-    v_bc = torch.empty_like(v)
+    v_bc = torch.empty(vec, dtype=torch.float32, device=dev)
     outs = tuple(torch.empty_like(v) for _ in range(6))
-    launch("f2d_cip_velocity_phase", dev, *ptrs, v_bc.data_ptr(),
-           *(o.data_ptr() for o in outs), x_rows, y_cols, *_cip_constants(re, dt, dx))
+    na32 = _wide_scratch(vec, sd, dev, 3)
+    launch(name, dev, *ptrs, v_bc.data_ptr(), *(o.data_ptr() for o in outs),
+           *(t.data_ptr() for t in na32), x_rows, y_cols, *_cip_constants(re, dt, dx))
     cip_velocity_phase_cuda.launches += 1
     return outs
 
@@ -238,27 +257,28 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
     if on_cpu(dye, "cip_dye_phase_cuda"):
         return cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
                                    re, dt, dx)
-    dev = dye.device
+    dev, sd = dye.device, dye.dtype
     _, x_rows, y_cols = dye.shape
     dyes, vec, plane = (3, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
-    f32_, i8 = torch.float32, torch.int8
+    name, i8 = entry("f2d_cip_dye_phase", sd), torch.int8
     ptrs = [
-        require(dye, "dye", dyes, f32_, dev),
-        require(dye_alt, "dye_alt", dyes, f32_, dev),
-        require(dyex, "dyex", dyes, f32_, dev),
-        require(dyex_alt, "dyex_alt", dyes, f32_, dev),
-        require(dyey, "dyey", dyes, f32_, dev),
-        require(dyey_alt, "dyey_alt", dyes, f32_, dev),
-        require(vel, "vel", vec, f32_, dev),
-        require(scene.bc_dye, "scene.bc_dye", dyes, f32_, dev),
+        require(dye, "dye", dyes, sd, dev),
+        require(dye_alt, "dye_alt", dyes, sd, dev),
+        require(dyex, "dyex", dyes, sd, dev),
+        require(dyex_alt, "dyex_alt", dyes, sd, dev),
+        require(dyey, "dyey", dyes, sd, dev),
+        require(dyey_alt, "dyey_alt", dyes, sd, dev),
+        require(vel, "vel", vec, sd, dev),
+        require(scene.bc_dye, "scene.bc_dye", dyes, sd, dev),
         require(scene.inflow8, "scene.inflow8", plane, i8, dev),
         require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
         require(scene.fluid8, "scene.fluid8", plane, i8, dev),
     ]
-    d_bc = torch.empty_like(dye)
+    d_bc = torch.empty(dyes, dtype=torch.float32, device=dev)
     outs = tuple(torch.empty_like(dye) for _ in range(6))
-    launch("f2d_cip_dye_phase", dev, *ptrs, d_bc.data_ptr(),
-           *(o.data_ptr() for o in outs), x_rows, y_cols, *_cip_constants(re, dt, dx))
+    na32 = _wide_scratch(dyes, sd, dev, 3)
+    launch(name, dev, *ptrs, d_bc.data_ptr(), *(o.data_ptr() for o in outs),
+           *(t.data_ptr() for t in na32), x_rows, y_cols, *_cip_constants(re, dt, dx))
     cip_dye_phase_cuda.launches += 1
     return outs
 
@@ -312,21 +332,22 @@ def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: floa
                     + 2 * operand_bytes(v))
     if on_cpu(v, "mac_velocity_phase_cuda"):
         return mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx)
-    dev = v.device
+    dev, sd = v.device, v.dtype
     _, x_rows, y_cols = v.shape
     vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
-    f32_, i8 = torch.float32, torch.int8
+    name, i8 = entry("f2d_mac_velocity_phase", sd), torch.int8
     ptrs = [
-        require(v, "v", vec, f32_, dev),
-        require(p, "p", plane, f32_, dev),
-        require(v_alt, "v_alt", vec, f32_, dev),
-        require(scene.bc_const, "scene.bc_const", vec, f32_, dev),
+        require(v, "v", vec, sd, dev),
+        require(p, "p", plane, sd, dev),
+        require(v_alt, "v_alt", vec, sd, dev),
+        require(scene.bc_const, "scene.bc_const", vec, sd, dev),
         require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
         require(scene.fluid8, "scene.fluid8", plane, i8, dev),
     ]
     v_out = torch.empty_like(v)
     v_bc = torch.empty_like(v)
-    launch("f2d_mac_velocity_phase", dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(),
+    bc32 = _wide_scratch(vec, sd, dev, 1)
+    launch(name, dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(), *(t.data_ptr() for t in bc32),
            x_rows, y_cols, int(scheme == "kk"), dt, recip32(dx), _inv_adv(scheme, dx),
            recip32(dx**2), recip32(re))
     mac_velocity_phase_cuda.launches += 1
@@ -361,21 +382,22 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
                     + 2 * operand_bytes(dye))
     if on_cpu(dye, "mac_dye_phase_cuda"):
         return mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx)
-    dev = dye.device
+    dev, sd = dye.device, dye.dtype
     chans, x_rows, y_cols = dye.shape
     dyes, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
-    f32_, i8 = torch.float32, torch.int8
+    name, i8 = entry("f2d_mac_dye_phase", sd), torch.int8
     ptrs = [
-        require(dye, "dye", dyes, f32_, dev),
-        require(dye_alt, "dye_alt", dyes, f32_, dev),
-        require(vel, "vel", vec, f32_, dev),
-        require(scene.bc_dye, "scene.bc_dye", dyes, f32_, dev),
+        require(dye, "dye", dyes, sd, dev),
+        require(dye_alt, "dye_alt", dyes, sd, dev),
+        require(vel, "vel", vec, sd, dev),
+        require(scene.bc_dye, "scene.bc_dye", dyes, sd, dev),
         require(scene.inflow8, "scene.inflow8", plane, i8, dev),
         require(scene.fluid8, "scene.fluid8", plane, i8, dev),
     ]
     d_out = torch.empty_like(dye)
     d_bc = torch.empty_like(dye)
-    launch("f2d_mac_dye_phase", dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(),
+    bc32 = _wide_scratch(dyes, sd, dev, 1)
+    launch(name, dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), *(t.data_ptr() for t in bc32),
            x_rows, y_cols, chans, int(scheme == "kk"), dt, _inv_adv(scheme, dx))
     mac_dye_phase_cuda.launches += 1
     return d_out, d_bc

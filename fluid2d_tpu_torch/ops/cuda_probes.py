@@ -10,8 +10,15 @@ Source notes (``csrc/probes.cu`` says more beside each kernel).
 ``mix_twin_cuda`` (C3)
   Replaces ``profiling.py:measure_mix_ceiling``, ``measure_slide_ceiling``
   and ``measure_slide2d_ceiling``: the no-op twin of one kernel's operands.
-  Reads every f32 and int8 input plane once, sums them in table order,
-  writes the sum to every output plane. Bound: bytes.
+  Reads every float32 and int8 input plane once, sums them in table order
+  in float32, writes the sum to every output plane. Bound: bytes. Given a
+  twin with bfloat16 planes it runs ``mix_twin_bf16_cuda``.
+
+``mix_twin_bf16_cuda`` (C5c, the bf16 arm of C3)
+  Replaces ``scripts/bf16_geometry_probe.py``: the same twin of a kernel at
+  bf16 transport, with bfloat16 planes beside the float32 ones; a bfloat16
+  output holds the sum rounded to nearest even. Its own kernel and its own
+  count. Bound: bytes.
 
 ``fma_rate_cuda`` (C4)
   Replaces ``profiling.py:measure_vpu_throughput``: eight independent
@@ -38,6 +45,7 @@ __all__ = [
     "MixOperands",
     "copy_add1_cuda",
     "copy_add1_plain",
+    "mix_twin_bf16_cuda",
     "mix_twin_cuda",
     "mix_twin_plain",
     "fma_rate_cuda",
@@ -87,27 +95,33 @@ copy_add1_cuda.launches = 0
 
 
 class MixOperands:
-    """The planes of one mix twin, checked once: f32 input planes, int8
-    input planes and `n_out` fresh f32 output planes, all (X, Y) on one
-    device; on a card also the device table of their pointers (int64, in
-    that order) that the kernel reads. Build it once and launch it many
-    times: the table costs a host→device copy."""
+    """The planes of one mix twin, checked once: float32, bfloat16 and int8
+    input planes, and fresh output planes (`n_out` float32, then `n_out16`
+    bfloat16), all (X, Y) on one device; on a card also the device table of
+    their pointers (int64, in that order) that the kernel reads. Build it
+    once and launch it many times: the table costs a host→device copy."""
 
-    def __init__(self, f32_in: list[torch.Tensor], i8_in: list[torch.Tensor], n_out: int):
-        if not f32_in or n_out < 1:
-            msg = "a mix twin needs at least one f32 input plane and one output plane"
+    def __init__(self, f32_in: list[torch.Tensor], i8_in: list[torch.Tensor], n_out: int,
+                 bf16_in: list[torch.Tensor] = (), n_out16: int = 0):
+        if not (f32_in or bf16_in) or n_out + n_out16 < 1:
+            msg = "a mix twin needs at least one float input plane and one output plane"
             raise ValueError(msg)
-        dev = f32_in[0].device
-        plane = tuple(f32_in[0].shape)
+        first = (list(f32_in) + list(bf16_in))[0]
+        dev = first.device
+        plane = tuple(first.shape)
         if len(plane) != 2:
             msg = f"mix twin planes are (X, Y), got {plane}"
             raise ValueError(msg)
         ptrs = [require(t, f"f32_in[{k}]", plane, torch.float32, dev)
                 for k, t in enumerate(f32_in)]
+        ptrs += [require(t, f"bf16_in[{k}]", plane, torch.bfloat16, dev)
+                 for k, t in enumerate(bf16_in)]
         ptrs += [require(t, f"i8_in[{k}]", plane, torch.int8, dev) for k, t in enumerate(i8_in)]
-        self.f32_in, self.i8_in = list(f32_in), list(i8_in)
-        self.outs = tuple(torch.empty(plane, dtype=torch.float32, device=dev)
-                          for _ in range(n_out))
+        self.f32_in, self.bf16_in, self.i8_in = list(f32_in), list(bf16_in), list(i8_in)
+        self.n_out32 = n_out
+        self.outs = tuple(torch.empty(plane, dtype=torch.float32 if k < n_out else torch.bfloat16,
+                                      device=dev)
+                          for k in range(n_out + n_out16))
         ptrs += [o.data_ptr() for o in self.outs]
         self.device, self.plane = dev, plane
         self.table = (None if dev.type == "cpu"
@@ -115,29 +129,48 @@ class MixOperands:
 
 
 def mix_twin_plain(ops: MixOperands) -> tuple[torch.Tensor, ...]:
-    """The sum of every input plane, f32 then int8, in order, written to
-    one fresh plane per output."""
+    """The sum of every input plane, float32, bfloat16 then int8, in order,
+    in float32, written to one fresh plane per output (of its dtype)."""
     acc = torch.zeros(ops.plane, dtype=torch.float32, device=ops.device)
     for t in ops.f32_in:
         acc = acc + t
-    for t in ops.i8_in:
+    for t in (*ops.bf16_in, *ops.i8_in):
         acc = acc + t.to(torch.float32)
-    return tuple(acc.clone() for _ in ops.outs)
+    return tuple(acc.to(o.dtype, copy=True) for o in ops.outs)
 
 
 def mix_twin_cuda(ops: MixOperands) -> tuple[torch.Tensor, ...]:
     """The mix twin over `ops`: on a card, the kernel writes the sum into
-    ``ops.outs`` and returns them."""
+    ``ops.outs`` and returns them. A twin with bfloat16 planes goes to
+    :func:`mix_twin_bf16_cuda`, which counts its own launches."""
+    if ops.bf16_in or ops.n_out32 < len(ops.outs):
+        return mix_twin_bf16_cuda(ops)
     if on_cpu(ops.f32_in[0], "mix_twin_cuda"):
         return mix_twin_plain(ops)
-    cells = ops.plane[0] * ops.plane[1]
     launch("f2d_mix_twin", ops.device, ops.table.data_ptr(), len(ops.f32_in), len(ops.i8_in),
-           len(ops.outs), cells)
+           len(ops.outs), ops.plane[0] * ops.plane[1])
     mix_twin_cuda.launches += 1
     return ops.outs
 
 
 mix_twin_cuda.launches = 0
+
+
+def mix_twin_bf16_cuda(ops: MixOperands) -> tuple[torch.Tensor, ...]:
+    """The twin of a kernel at bf16 transport over `ops` (float32, bfloat16
+    and int8 planes): on a card, the kernel writes the sum into ``ops.outs``
+    and returns them."""
+    if on_cpu((ops.f32_in + ops.bf16_in)[0], "mix_twin_bf16_cuda"):
+        return mix_twin_plain(ops)
+    n_out = len(ops.outs)
+    launch("f2d_mix_twin_bf16", ops.device, ops.table.data_ptr(), len(ops.f32_in),
+           len(ops.bf16_in), len(ops.i8_in), ops.n_out32, n_out - ops.n_out32,
+           ops.plane[0] * ops.plane[1])
+    mix_twin_bf16_cuda.launches += 1
+    return ops.outs
+
+
+mix_twin_bf16_cuda.launches = 0
 
 
 # --- C4: FMA rate ---------------------------------------------------------------------

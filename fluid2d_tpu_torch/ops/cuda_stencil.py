@@ -11,7 +11,7 @@ Source notes.
   launches (BC, odd sweep, even sweep in place; the limiter rides the
   even-sweep launch).
   Bound on the H100: bytes. Per iteration it reads p, p_alt, u, w and two
-  int8 planes and writes two (four with the limiter) f32 planes, at about
+  int8 planes and writes two (four with the limiter) planes, at about
   25 flops per cell: far below the card's flop:byte balance.
   What the design does about it: nothing yet. Each launch re-reads its
   inputs from device memory (the neighbours mostly hit L1/L2); fusing the
@@ -26,12 +26,23 @@ Source notes.
   not-wall cell; the limiter rides the last sweep). The BC and
   ``predict_p`` are ``csrc/pressure.cuh``, shared with SOR.
   Bound on the H100: bytes, as SOR: per iteration it reads p, p_alt, u, w
-  and two int8 planes and writes two f32 planes, ~25 flops per cell.
+  and two int8 planes and writes two planes, ~25 flops per cell.
   What the design does about it: nothing yet. The Pallas kernel keeps all
   iterations of a call in VMEM with a 2-row halo per iteration; here every
   iteration's pair goes through device memory (mostly L2 at 3200×1600,
   20 MB per plane). Fusing the iterations with a per-tile halo is later
   work.
+
+Storage. The velocity ``u, w`` (and the limited velocity) is stored in the
+state's transport dtype, float32 or bfloat16. The pressure pair read and
+the pair returned are each that dtype or float32: a solve of several calls
+keeps its pair in float32 between calls and rounds it once, at the end, as
+the JAX package's jnp path does (``fluid2d_tpu/models/common.py:98-119``).
+So a call is one link of a chain: at bf16 the first reads bf16 and returns
+float32 (``out_dtype=torch.float32``), the middle ones read and return
+float32, the last returns bf16; a lone call reads and returns bf16. The
+byte ledger names a link whose pair differs from the velocity's dtype
+(``_f32in``, ``_f32out``). Arithmetic is float32 throughout.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import torch
 
 from fluid2d_tpu_torch.ops import launch as _launch
 from fluid2d_tpu_torch.ops.launch import (
+    STORAGE_DTYPES,
     launch,
     log_traffic,
     on_cpu,
@@ -49,6 +61,7 @@ from fluid2d_tpu_torch.ops.launch import (
 )
 from fluid2d_tpu_torch.ops.limiters import limit_vector_norm
 from fluid2d_tpu_torch.ops.pressure import jacobi_pressure_iteration, sor_pressure_iteration
+from fluid2d_tpu_torch.utils.dtypes import f32, to_transport
 
 __all__ = [
     "sor_iteration_cuda",
@@ -61,12 +74,54 @@ __all__ = [
 JACOBI_MAX_ITERS = 4  # iterations one jacobi_iteration_cuda call runs at most
 
 
-def _log_pressure(name, p_cur, p_alt, u, w, code8, mask8, v_limit) -> None:
+def _link(p_cur, p_alt, u, w, out_dtype, wrapper: str):
+    """The dtypes of one call: ``(velocity's, pair read, pair returned)``.
+    The pair read is p_cur's (p_alt must match; w must match u); the pair
+    returned is `out_dtype`, by default the pair read's. Each pair is the
+    velocity's dtype or float32; anything else raises."""
+    sd, in_dt = u.dtype, p_cur.dtype
+    out_dt = in_dt if out_dtype is None else out_dtype
+    if sd not in STORAGE_DTYPES or w.dtype != sd:
+        msg = f"{wrapper}: u, w are {u.dtype}, {w.dtype}; expected one of {STORAGE_DTYPES}"
+        raise TypeError(msg)
+    for what, dt in (("p_cur", in_dt), ("p_alt", p_alt.dtype), ("the returned pair", out_dt)):
+        if dt not in (sd, torch.float32):
+            msg = f"{wrapper}: {what} is {dt}; expected {sd} (the velocity's) or torch.float32"
+            raise TypeError(msg)
+    if p_alt.dtype != in_dt:
+        msg = f"{wrapper}: p_alt is {p_alt.dtype}, p_cur {in_dt}"
+        raise TypeError(msg)
+    return sd, in_dt, out_dt
+
+
+def _log_pressure(name, p_cur, p_alt, u, w, code8, mask8, v_limit, out_dt) -> None:
     """Ledger entry of a pressure call: six input planes, the output pair,
-    and the limited (2, X, Y) velocity when the limiter rides along."""
-    outs = 2 * operand_bytes(p_cur) + (0 if v_limit is None else operand_bytes(u, w))
+    and the limited (2, X, Y) velocity when the limiter rides along. A link
+    whose pair is float32 while the velocity is not is named for it."""
+    name += "_f32in" if p_cur.dtype != u.dtype else ""
+    name += "_f32out" if out_dt != u.dtype else ""
+    pair_out = 2 * p_cur.numel() * out_dt.itemsize
+    outs = pair_out + (0 if v_limit is None else operand_bytes(u, w))
     log_traffic(name + ("" if v_limit is None else "_v_limit"),
                 operand_bytes(p_cur, p_alt, u, w, code8, mask8) + outs)
+
+
+def _finish(pair, u32, w32, out_dt, sd, v_limit):
+    """The plain versions' ending: the pair rounded once to `out_dt`, and
+    the velocity limited in float32 and rounded once to `sd` when asked
+    (``fluid2d_tpu/models/common.py:146``)."""
+    pair = tuple(to_transport(a, out_dt) for a in pair)
+    if v_limit is None:
+        return pair
+    return (*pair, to_transport(limit_vector_norm(torch.stack([u32, w32]), v_limit), sd))
+
+
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _scratch(shape, dev, wanted: bool):
+    return torch.empty(shape, dtype=torch.float32, device=dev) if wanted else None
 
 
 class _SorMasks:
@@ -85,52 +140,64 @@ class _SorMasks:
 
 
 def sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: float,
-                        dx: float, *, v_limit: float | None = None):
+                        dx: float, *, v_limit: float | None = None,
+                        out_dtype: torch.dtype | None = None):
     """One SOR iteration composed from the eager ops, exactly as
     ``fluid2d_tpu/ops/pressure.py`` and ``models/common.py:146`` compose
-    them. Returns ``(p_cur, p_alt)``, plus the norm-limited ``(2, X, Y)``
-    velocity when `v_limit` is given."""
-    pair = sor_pressure_iteration(p_cur, p_alt, u, w, _SorMasks(pbc_code, fluid8), omega, dt, dx)
-    if v_limit is None:
-        return pair
-    return (*pair, limit_vector_norm(torch.stack([u, w]), v_limit))
+    them, in float32. Returns ``(p_cur, p_alt)`` as `out_dtype`, plus the
+    norm-limited ``(2, X, Y)`` velocity in u's dtype when `v_limit` is
+    given."""
+    sd, _, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "sor_iteration_plain")
+    u32, w32 = f32(u), f32(w)
+    pair = sor_pressure_iteration(f32(p_cur), f32(p_alt), u32, w32, _SorMasks(pbc_code, fluid8),
+                                  omega, dt, dx)
+    return _finish(pair, u32, w32, out_dt, sd, v_limit)
 
 
 def sor_iteration_cuda(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: float,
-                       dx: float, *, v_limit: float | None = None):
+                       dx: float, *, v_limit: float | None = None,
+                       out_dtype: torch.dtype | None = None):
     """One red-black SOR iteration (pressure BC, odd sweep, even sweep),
-    with the velocity-norm limiter folded in when `v_limit` is given.
+    with the velocity-norm limiter folded in when `v_limit` is given; the
+    pair is returned as `out_dtype` (default: p_cur's), one link of a chain
+    (module notes).
 
     CPU tensors take :func:`sor_iteration_plain`. CUDA tensors launch
     ``csrc/sor.cu``; anything the kernel does not take (dtype, shape,
     layout, mixed devices) raises. Outputs are fresh tensors.
     """
+    sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "sor_iteration_cuda")
     if _launch.TRAFFIC_LOG is not None:
-        _log_pressure("sor_iteration", p_cur, p_alt, u, w, pbc_code, fluid8, v_limit)
+        _log_pressure("sor_iteration", p_cur, p_alt, u, w, pbc_code, fluid8, v_limit, out_dt)
     if on_cpu(p_cur, "sor_iteration_cuda"):
         return sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega, dt, dx,
-                                   v_limit=v_limit)
+                                   v_limit=v_limit, out_dtype=out_dt)
     dev = p_cur.device
     x_rows, y_cols = p_cur.shape
     plane = (x_rows, y_cols)
-    f32, i8 = torch.float32, torch.int8
+    i8 = torch.int8
     ptrs = [
-        require(p_cur, "p_cur", plane, f32, dev),
-        require(p_alt, "p_alt", plane, f32, dev),
-        require(u, "u", plane, f32, dev),
-        require(w, "w", plane, f32, dev),
+        require(p_cur, "p_cur", plane, in_dt, dev),
+        require(p_alt, "p_alt", plane, in_dt, dev),
+        require(u, "u", plane, sd, dev),
+        require(w, "w", plane, sd, dev),
         require(pbc_code, "pbc_code", plane, i8, dev),
         require(fluid8, "fluid8", plane, i8, dev),
     ]
-    p_out = torch.empty_like(p_cur)
-    p_bc = torch.empty_like(p_cur)
-    v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=f32, device=dev)
-    launch(
-        "f2d_sor_iteration", dev,
-        *ptrs, p_out.data_ptr(), p_bc.data_ptr(), 0 if v_lim is None else v_lim.data_ptr(),
-        x_rows, y_cols, omega, 1.0 - omega, dx, recip32(8 * dt),
-        0.0 if v_limit is None else v_limit,
-    )
+    p_out = torch.empty(plane, dtype=out_dt, device=dev)
+    p_bc = torch.empty_like(p_out)
+    v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
+    consts = (omega, 1.0 - omega, dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
+    if sd == torch.float32:
+        launch("f2d_sor_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(), _ptr(v_lim),
+               x_rows, y_cols, *consts)
+    else:
+        # A bf16 pair returned is rounded from float planes kept beside it.
+        narrow = out_dt != torch.float32
+        wide = [_scratch(plane, dev, True) if narrow else t for t in (p_out, p_bc)]
+        launch("f2d_sor_iteration_bf16", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(),
+               *(t.data_ptr() for t in wide), _ptr(v_lim), x_rows, y_cols,
+               int(in_dt != torch.float32), int(narrow), *consts)
     sor_iteration_cuda.launches += 1
     if v_lim is None:
         return p_out, p_bc
@@ -138,10 +205,6 @@ def sor_iteration_cuda(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: f
 
 
 sor_iteration_cuda.launches = 0  # kernel runs (any number of __global__ launches each)
-
-
-def _ptr(t: torch.Tensor | None) -> int:
-    return 0 if t is None else t.data_ptr()
 
 
 class _JacobiMasks:
@@ -160,60 +223,71 @@ def _check_n_iters(n_iters: int) -> None:
 
 
 def jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx: float, *,
-                           n_iters: int = 1, v_limit: float | None = None):
+                           n_iters: int = 1, v_limit: float | None = None,
+                           out_dtype: torch.dtype | None = None):
     """`n_iters` chained Jacobi iterations composed from the eager ops, as
     ``fluid2d_tpu/models/common.py:108-116`` chains
-    ``jacobi_pressure_iteration``. Returns ``(p_cur, p_alt)``, plus the
-    norm-limited ``(2, X, Y)`` velocity when `v_limit` is given."""
+    ``jacobi_pressure_iteration``, in float32. Returns ``(p_cur, p_alt)`` as
+    `out_dtype`, plus the norm-limited ``(2, X, Y)`` velocity in u's dtype
+    when `v_limit` is given."""
     _check_n_iters(n_iters)
+    sd, _, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "jacobi_iteration_plain")
     masks = _JacobiMasks(pbc_code, not_wall8)
-    pair = (p_cur, p_alt)
+    u32, w32 = f32(u), f32(w)
+    pair = (f32(p_cur), f32(p_alt))
     for _ in range(n_iters):
-        pair = jacobi_pressure_iteration(*pair, u, w, masks, dt, dx)
-    if v_limit is None:
-        return pair
-    return (*pair, limit_vector_norm(torch.stack([u, w]), v_limit))
+        pair = jacobi_pressure_iteration(*pair, u32, w32, masks, dt, dx)
+    return _finish(pair, u32, w32, out_dt, sd, v_limit)
 
 
 def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx: float, *,
-                          n_iters: int = 1, v_limit: float | None = None):
+                          n_iters: int = 1, v_limit: float | None = None,
+                          out_dtype: torch.dtype | None = None):
     """`n_iters` (1..4) Jacobi iterations (pressure BC, then the sweep of
     every not-wall cell) in one kernel run, with the velocity-norm limiter
-    folded in when `v_limit` is given.
+    folded in when `v_limit` is given; the pair is returned as `out_dtype`
+    (default: p_cur's), one link of a chain (module notes).
 
     CPU tensors take :func:`jacobi_iteration_plain`. CUDA tensors launch
     ``csrc/jacobi.cu``; anything the kernel does not take raises. Outputs
     are fresh tensors.
     """
     _check_n_iters(n_iters)
+    sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "jacobi_iteration_cuda")
     if _launch.TRAFFIC_LOG is not None:
         _log_pressure(f"jacobi_iteration_n{n_iters}", p_cur, p_alt, u, w, pbc_code, not_wall8,
-                      v_limit)
+                      v_limit, out_dt)
     if on_cpu(p_cur, "jacobi_iteration_cuda"):
         return jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt, dx,
-                                      n_iters=n_iters, v_limit=v_limit)
+                                      n_iters=n_iters, v_limit=v_limit, out_dtype=out_dt)
     dev = p_cur.device
     x_rows, y_cols = p_cur.shape
     plane = (x_rows, y_cols)
-    f32, i8 = torch.float32, torch.int8
+    i8 = torch.int8
     ptrs = [
-        require(p_cur, "p_cur", plane, f32, dev),
-        require(p_alt, "p_alt", plane, f32, dev),
-        require(u, "u", plane, f32, dev),
-        require(w, "w", plane, f32, dev),
+        require(p_cur, "p_cur", plane, in_dt, dev),
+        require(p_alt, "p_alt", plane, in_dt, dev),
+        require(u, "u", plane, sd, dev),
+        require(w, "w", plane, sd, dev),
         require(pbc_code, "pbc_code", plane, i8, dev),
         require(not_wall8, "not_wall8", plane, i8, dev),
     ]
-    p_out = torch.empty_like(p_cur)
-    p_bc = torch.empty_like(p_cur)
+    p_out = torch.empty(plane, dtype=out_dt, device=dev)
+    p_bc = torch.empty_like(p_out)
     # The scratch pair holds the iterations of the other parity than the last.
-    scratch = [torch.empty_like(p_cur) if n_iters > 1 else None for _ in range(2)]
-    v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=f32, device=dev)
-    launch(
-        "f2d_jacobi_iteration", dev,
-        *ptrs, p_out.data_ptr(), p_bc.data_ptr(), *(_ptr(t) for t in scratch), _ptr(v_lim),
-        x_rows, y_cols, n_iters, dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit,
-    )
+    scratch = [_scratch(plane, dev, n_iters > 1) for _ in range(2)]
+    v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
+    consts = (dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
+    if sd == torch.float32:
+        launch("f2d_jacobi_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(),
+               *(_ptr(t) for t in scratch), _ptr(v_lim), x_rows, y_cols, n_iters, *consts)
+    else:
+        # A bf16 pair returned is rounded from float planes kept beside it.
+        narrow = out_dt != torch.float32
+        wide = [_scratch(plane, dev, True) if narrow else t for t in (p_out, p_bc)]
+        launch("f2d_jacobi_iteration_bf16", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(),
+               *(t.data_ptr() for t in wide), *(_ptr(t) for t in scratch), _ptr(v_lim),
+               x_rows, y_cols, n_iters, int(in_dt != torch.float32), int(narrow), *consts)
     jacobi_iteration_cuda.launches += 1
     if v_lim is None:
         return p_out, p_bc

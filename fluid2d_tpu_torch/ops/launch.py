@@ -2,6 +2,9 @@
 
 A wrapper hands raw pointers to a C entry point, so everything the
 kernel assumes is checked here first: device, dtype, shape, contiguity.
+A field is stored as float32 or bfloat16 (the transport dtype,
+``SimConfig.dtype``); each C entry point has one version per storage type,
+``f2d_<kernel>`` and ``f2d_<kernel>_bf16`` (:func:`entry`).
 The kernel library is imported and built only when a CUDA tensor is
 launched on, never when a module is imported.
 
@@ -22,7 +25,9 @@ import numpy as np
 import torch
 
 __all__ = ["on_cpu", "require", "launch", "recip32", "TRAFFIC_LOG", "log_traffic",
-           "operand_bytes"]
+           "operand_bytes", "STORAGE_DTYPES", "entry"]
+
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' field storage types
 
 TRAFFIC_LOG: list[tuple[str, int]] | None = None
 
@@ -45,6 +50,15 @@ def recip32(x: float) -> float:
     where the float32 reciprocal of float32(x) is not). The kernels multiply
     by this where the eager path divides by a constant."""
     return float(np.float32(1.0 / x))
+
+
+def entry(name: str, dtype: torch.dtype) -> str:
+    """The C entry point of kernel `name` for fields stored as `dtype`;
+    raises for a dtype the kernels do not store."""
+    if dtype not in STORAGE_DTYPES:
+        msg = f"{name}: fields stored as {dtype}; the kernels take float32 or bfloat16"
+        raise TypeError(msg)
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
 
 
 def on_cpu(t: torch.Tensor, wrapper: str) -> bool:

@@ -19,7 +19,11 @@ from the JAX package:
   the counts differ from the JAX package's;
 * every probe takes an explicit ``device``; on a CPU device the copy and
   twin probes time their plain versions (approximate, cache-sized figures)
-  and the FMA probe returns ``None``.
+  and the FMA probe returns ``None``;
+* at bf16 transport each ceiling is the bf16 twin's (the kernel's state
+  planes bf16, the float32 planes it keeps float32); the JAX package's
+  extra "bf16 at 2× tile" arm has no counterpart, the port's kernels having
+  no tile.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from fluid2d_tpu_torch.config import SimConfig
-from fluid2d_tpu_torch.models.simulator import make_run_fn, make_step_fn
+from fluid2d_tpu_torch.models.simulator import make_run_fn, make_step_fn, scene_for_dtype
 from fluid2d_tpu_torch.ops import launch as _launch
 from fluid2d_tpu_torch.ops.cuda_probes import (
     FMA_CHAINS,
@@ -47,6 +51,7 @@ from fluid2d_tpu_torch.state import SimState, init_state
 __all__ = [
     "sync",
     "time_steps",
+    "seconds_per_call",
     "measure_hbm_bandwidth",
     "mix_bytes",
     "twin_operands",
@@ -81,7 +86,7 @@ def time_steps(run, state: SimState, scene: Scene, n: int) -> tuple[float, SimSt
     return (time.perf_counter() - t0) / n, state
 
 
-def _seconds_per_call(fn, iters: int, device: torch.device) -> float:
+def seconds_per_call(fn, iters: int, device: torch.device) -> float:
     """Mean seconds per call of `fn` over `iters` calls after two warm-up
     calls: CUDA events around the loop on a card, the host clock on the
     CPU."""
@@ -127,82 +132,116 @@ def measure_hbm_bandwidth(mbytes: int = 320, iters: int = 2000,
         copy_add1_cuda(bufs[k], out=bufs[1 - k])
         flip[0] = 1 - k
 
-    return 2 * x * y * 4 / _seconds_per_call(once, iters, dev)
+    return 2 * x * y * 4 / seconds_per_call(once, iters, dev)
 
 
 # --- per-kernel mix ceilings ------------------------------------------------------
 #
 # Each kernel variant's operands as its C entry point takes them: the
-# number of (X, Y) planes of each f32 input, each int8 input and each f32
-# output, in argument order (scratch excluded). The ledger names are the
+# number of (X, Y) planes of each input and output, in argument order
+# (scratch excluded), by storage: "f_in" / "f_out" are stored in the
+# transport dtype (float32 or bfloat16), "w_in" / "w_out" in float32 at
+# either transport dtype (the float32 pressure pair between the calls of a
+# chain, ops/cuda_stencil.py), "i8_in" as int8. The ledger names are the
 # ones the phase wrappers log (ops/cuda_phases.py, ops/cuda_stencil.py);
 # mix_bytes must equal the logged bytes (tests/test_torch_profiling.py).
 
-_PRESSURE_IN = {"f32_in": (1, 1, 1, 1), "i8_in": (1, 1)}  # p, p_alt, u, w; code, mask
-
 
 def _pressure_mixes(name: str) -> dict[str, dict]:
-    return {name: {**_PRESSURE_IN, "f32_out": (1, 1)},
-            name + "_v_limit": {**_PRESSURE_IN, "f32_out": (1, 1, 2)}}
+    """The pressure call's links: the pair read and the pair returned each
+    in the transport dtype or (``_f32in`` / ``_f32out``) in float32; u, w
+    and the codes; the limited velocity with ``_v_limit``."""
+    mixes = {}
+    for wide_in in (False, True):
+        for wide_out in (False, True):
+            link = name + ("_f32in" if wide_in else "") + ("_f32out" if wide_out else "")
+            mix = {"f_in": (1, 1) if wide_in else (1, 1, 1, 1),  # [p, p_alt,] u, w
+                   "w_in": (1, 1) if wide_in else (),  # [p, p_alt]
+                   "i8_in": (1, 1),  # code, mask
+                   "f_out": () if wide_out else (1, 1),
+                   "w_out": (1, 1) if wide_out else ()}
+            mixes[link] = mix
+            mixes[link + "_v_limit"] = {**mix, "f_out": (*mix["f_out"], 2)}
+    return mixes
 
 
 _KERNEL_MIXES: dict[str, dict] = {
     # v, p, v_alt, vx, vx_alt, vy, vy_alt, bc_const; vbc_code, not_wall8, fluid8
-    "cip_velocity_phase": {"f32_in": (2, 1, 2, 2, 2, 2, 2, 2), "i8_in": (1, 1, 1),
-                           "f32_out": (2,) * 6},
+    "cip_velocity_phase": {"f_in": (2, 1, 2, 2, 2, 2, 2, 2), "i8_in": (1, 1, 1),
+                           "f_out": (2,) * 6},
     # dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, bc_dye; inflow8, not_wall8, fluid8
-    "cip_dye_phase": {"f32_in": (3, 3, 3, 3, 3, 3, 2, 3), "i8_in": (1, 1, 1),
-                      "f32_out": (3,) * 6},
+    "cip_dye_phase": {"f_in": (3, 3, 3, 3, 3, 3, 2, 3), "i8_in": (1, 1, 1),
+                      "f_out": (3,) * 6},
     # v, v_alt; fluid8
-    "confinement": {"f32_in": (2, 2), "i8_in": (1,), "f32_out": (2,)},
+    "confinement": {"f_in": (2, 2), "i8_in": (1,), "f_out": (2,)},
     **_pressure_mixes("sor_iteration"),
     **{k: v for n in range(1, 5) for k, v in _pressure_mixes(f"jacobi_iteration_n{n}").items()},
     # v, p, v_alt, bc_const; vbc_code, fluid8
-    **{f"mac_velocity_phase_{s}": {"f32_in": (2, 1, 2, 2), "i8_in": (1, 1), "f32_out": (2, 2)}
+    **{f"mac_velocity_phase_{s}": {"f_in": (2, 1, 2, 2), "i8_in": (1, 1), "f_out": (2, 2)}
        for s in ("upwind", "kk")},
     # dye, dye_alt, vel, bc_dye; inflow8, fluid8
-    **{f"mac_dye_phase_{s}": {"f32_in": (3, 3, 2, 3), "i8_in": (1, 1), "f32_out": (3, 3)}
+    **{f"mac_dye_phase_{s}": {"f_in": (3, 3, 2, 3), "i8_in": (1, 1), "f_out": (3, 3)}
        for s in ("upwind", "kk")},
 }
 
 
-def mix_bytes(name: str, x_rows: int, y_cols: int) -> int | None:
+def _planes(mix: dict, key: str) -> int:
+    return sum(mix.get(key, ()))
+
+
+def mix_bytes(name: str, x_rows: int, y_cols: int, itemsize: int = 4) -> int | None:
     """Bytes per call of kernel variant `name` by its registered operand
-    mix: each operand read or written once. None when unregistered."""
+    mix, its transport-dtype planes `itemsize` bytes an element (4 float32,
+    2 bfloat16), its float32 planes 4 and its int8 planes 1: each operand
+    read or written once. None when unregistered."""
     mix = _KERNEL_MIXES.get(name)
     if mix is None:
         return None
-    planes = 4 * sum(mix["f32_in"]) + sum(mix["i8_in"]) + 4 * sum(mix["f32_out"])
+    planes = (itemsize * (_planes(mix, "f_in") + _planes(mix, "f_out"))
+              + 4 * (_planes(mix, "w_in") + _planes(mix, "w_out")) + _planes(mix, "i8_in"))
     return planes * x_rows * y_cols
 
 
-def twin_operands(name: str, x_rows: int, y_cols: int, device: torch.device | str) -> MixOperands:
-    """Distinct seeded planes for kernel variant `name`'s twin: random
-    normal f32 planes and int8 planes in [-3, 3]."""
+def twin_operands(name: str, x_rows: int, y_cols: int, device: torch.device | str,
+                  dtype: torch.dtype | str = torch.float32) -> MixOperands:
+    """Distinct seeded planes for kernel variant `name`'s twin at transport
+    `dtype`: random normal float planes (the transport-dtype ones in
+    `dtype`, the others float32) and int8 planes in [-3, 3]."""
     mix = _KERNEL_MIXES[name]
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     shape = (x_rows, y_cols)
-    f32_in = [torch.randn(shape, generator=gen, device=dev) for _ in range(sum(mix["f32_in"]))]
+
+    def planes(n, dtype=torch.float32):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(n)]
+
+    f_in, w_in = planes(_planes(mix, "f_in"), dt), planes(_planes(mix, "w_in"))
     i8_in = [torch.randint(-3, 4, shape, generator=gen, device=dev, dtype=torch.int8)
-             for _ in range(sum(mix["i8_in"]))]
-    return MixOperands(f32_in, i8_in, sum(mix["f32_out"]))
+             for _ in range(_planes(mix, "i8_in"))]
+    n_f_out, n_w_out = _planes(mix, "f_out"), _planes(mix, "w_out")
+    if dt == torch.float32:
+        return MixOperands(f_in + w_in, i8_in, n_f_out + n_w_out)
+    return MixOperands(w_in, i8_in, n_w_out, bf16_in=f_in, n_out16=n_f_out)
 
 
 def measure_mix_ceiling(name: str, x_rows: int, y_cols: int, iters: int | None = None,
-                        device: torch.device | str = "cuda") -> tuple[float, int] | None:
+                        device: torch.device | str = "cuda",
+                        dtype: torch.dtype | str = torch.float32) -> tuple[float, int] | None:
     """Measured ceiling (bytes/s, and bytes per call) of kernel variant
-    `name`'s operand mix at the (x_rows, y_cols) grid: the no-op twin
-    (probe C3) on distinct planes, which reads every input once and
-    writes every output once. None when `name` has no registered mix."""
+    `name`'s operand mix at the (x_rows, y_cols) grid and transport
+    `dtype`: the no-op twin (probe C3; at bf16 the probe C5c) on distinct
+    planes, which reads every input once and writes every output once.
+    None when `name` has no registered mix."""
     if name not in _KERNEL_MIXES:
         return None
     dev = torch.device(device)
-    ops = twin_operands(name, x_rows, y_cols, dev)
-    nbytes = mix_bytes(name, x_rows, y_cols)
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    ops = twin_operands(name, x_rows, y_cols, dev, dt)
+    nbytes = mix_bytes(name, x_rows, y_cols, dt.itemsize)
     if iters is None:
         iters = min(2000, max(100, int(3e11 / nbytes)))
-    return nbytes / _seconds_per_call(lambda: mix_twin_cuda(ops), iters, dev), nbytes
+    return nbytes / seconds_per_call(lambda: mix_twin_cuda(ops), iters, dev), nbytes
 
 
 # --- element-op counts --------------------------------------------------------------
@@ -303,7 +342,7 @@ def measure_fma_throughput(passes: int = 8192, iters: int = 20,
         return None
     rows, cols = 2048, 1024
     x = torch.full((rows, cols), 0.5, dtype=torch.float32, device=dev)
-    sec = _seconds_per_call(lambda: fma_rate_cuda(x, passes), iters, dev)
+    sec = seconds_per_call(lambda: fma_rate_cuda(x, passes), iters, dev)
     # Per element: passes FMAs at weight 2, FMA_CHAINS start multiplies and
     # FMA_CHAINS - 1 merge adds at weight 1.
     return rows * cols * (2 * passes + 2 * FMA_CHAINS - 1) / sec
@@ -353,7 +392,7 @@ def step_kernel_bytes(cfg: SimConfig, res: int, bc: int = 2,
     ``step_blockspec_bytes``). ``{}`` for ``kernels="eager"``, which never
     enters a wrapper."""
     dev = torch.device(device)
-    scene = get_scene(bc, res, dev)
+    scene = scene_for_dtype(get_scene(bc, res, dev), cfg)
     state = init_state(scene, cfg, dev)
     ledger: list[tuple[str, int]] = []
     prev, _launch.TRAFFIC_LOG = _launch.TRAFFIC_LOG, ledger
@@ -371,7 +410,7 @@ def step_kernel_elops(cfg: SimConfig, res: int, bc: int = 2) -> dict[str, float]
     :func:`collect_elops`. Keys match :func:`step_kernel_bytes`."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    scene = get_scene(bc, res, "cpu")
+    scene = scene_for_dtype(get_scene(bc, res, "cpu"), cfg)
     fake = FakeTensorMode()
     fake_scene = Scene(*(fake.from_tensor(t) for t in scene))
     with fake:
@@ -391,8 +430,10 @@ def roofline_report(res: int = 1600, scheme: str = "cip", steps: int = 100,
     measured on `device`.
 
     Denominators: ``streaming_copy_GBps`` (probe C2 on 320 MB), each
-    kernel's ``ceiling_GBps`` (probe C3, its operand mix at the real grid)
-    and ``fma_rate_Gelops`` (probe C4). Per kernel: bytes per step, the
+    kernel's ``ceiling_GBps`` (probe C3, its operand mix at the real grid
+    and at the transport `dtype`: at bf16 the bf16 twin) and
+    ``fma_rate_Gelops`` (probe C4: float32, the kernels' arithmetic at
+    either dtype, as ``fluid2d_tpu/utils/profiling.py:884,917`` keeps it). Per kernel: bytes per step, the
     ceiling, ``mem_floor_ms`` = bytes / ceiling, ``fma_floor_ms`` = counted
     el-ops / FMA rate, ``floor_ms`` = the larger, ``bound`` = which one.
     ``pct_of_geometry_roofline`` is the sum of the floors over the measured
@@ -408,7 +449,7 @@ def roofline_report(res: int = 1600, scheme: str = "cip", steps: int = 100,
     dev = torch.device(device)
     cfg = SimConfig.create(resolution=res, scheme=scheme, vor_eps=5.0, enable_dye=True,
                            dtype=dtype)
-    scene = get_scene(2, res, dev)
+    scene = scene_for_dtype(get_scene(2, res, dev), cfg)
     x_rows, y_cols = scene.shape
     sec_per_step, _ = time_steps(make_run_fn(cfg), init_state(scene, cfg, dev), scene, steps)
     report: dict = {"device": device_name(dev)}
@@ -437,7 +478,7 @@ def roofline_report(res: int = 1600, scheme: str = "cip", steps: int = 100,
     floor_ms = 0.0
     for name, nbytes in sorted(per_kernel.items()):
         row: dict = {"MB_per_step": nbytes / 2**20}
-        ceil_bps, _ = measure_mix_ceiling(name, x_rows, y_cols, device=dev)
+        ceil_bps, _ = measure_mix_ceiling(name, x_rows, y_cols, device=dev, dtype=cfg.dtype)
         mem_floor = nbytes / ceil_bps * 1e3
         row |= {"ceiling_GBps": ceil_bps / 1e9, "mem_floor_ms": mem_floor}
         floor = mem_floor

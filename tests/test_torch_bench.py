@@ -16,8 +16,9 @@
   same state agrees to 2.3e-7 (tests/test_torch_step.py holds the seeded
   state, confinement on, to the JAX package over 4 steps);
 * ``run_preset`` reports a stable row, the command line refuses a missing
-  card and bf16, and ``python -m fluid2d_tpu_torch.bench --device cpu`` prints
-  one JSON line without importing JAX.
+  card (at bf16 too) and runs bf16 on the CPU with the metric's ``_bfloat16``
+  suffix, and ``python -m fluid2d_tpu_torch.bench --device cpu`` prints one
+  JSON line without importing JAX.
 """
 
 import importlib.util
@@ -90,14 +91,34 @@ def test_run_preset_reports_a_stable_row(monkeypatch):
         assert "vs_baseline" not in row
 
 
-def test_cli_refuses_a_missing_card_and_bf16(monkeypatch):
+def test_cli_refuses_a_missing_card_and_bf16(monkeypatch, capsys):
+    """Without a card the bench refuses, at bf16 as at float32: bf16 does not
+    fall back to the CPU either. With --device cpu it runs bf16."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         bench.main(["--res", "16", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA card"):
         bench.bench_config(16, "cip", 1, device="cuda")
-    with pytest.raises(ValueError, match="not ported"):
-        bench.main(["--device", "cpu", "--res", "16", "--steps", "1", "--dtype", "bfloat16"])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        bench.main(["--res", "16", "--steps", "1", "--dtype", "bfloat16"])
+    bench.main(["--device", "cpu", "--res", "16", "--steps", "1", "--dtype", "bfloat16"])
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["metric"] == "steps_per_sec_res16_cip_bfloat16" and row["value"] > 0
+
+
+@pytest.mark.parametrize("scheme", ["upwind", "kk", "cip"])
+def test_bench_config_runs_bf16(scheme):
+    rate, state = bench.bench_config(RES, scheme, 2, dtype="bfloat16", device="cpu")
+    assert np.isfinite(rate) and rate > 0
+    assert state.v.dtype == torch.bfloat16 and state.p.dtype == torch.bfloat16
+    assert bool(torch.isfinite(state.v.float()).all())
+
+
+def test_run_preset_bf16_metric(monkeypatch):
+    small = {n: {**p, "kw": {**p["kw"], "res": 16}, "steps": 2} for n, p in bench._PRESETS.items()}
+    monkeypatch.setattr(bench, "_PRESETS", small)
+    row = bench.run_preset(2, dtype="bfloat16", device="cpu")
+    assert row["metric"] == "baseline_config_2_bfloat16" and row["stable"] is True
 
 
 def test_module_prints_one_json_line_without_jax():

@@ -13,14 +13,22 @@ roofline's probes: the copy (C2) bit-equal, the mix twin (C3) and the FMA
 chains (C4, at a shallow 64 passes) within 1e-5·max(1, |ref|max); C4 at
 its full 8192 passes within cuda_probes.fma_rate_error_bound of the
 float64 plain version.
+
+At bf16 transport every kernel variant and pressure chain link is held to
+its plain version bit for bit (NaN equal to NaN: the card's canonical bf16
+NaN is not the one PyTorch's conversion gives): the kernels round each
+float32 value once, where the plain versions do, and the float32 values
+are the plain versions' to the bit. The bf16 probes: the dtype-rate chains
+(C5a) within ``RATE_TOL_ULPS`` of their plain version, which a step more or
+fewer misses; the row copies (C5b) and the bf16 twin (C5c) bit-equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fluid2d_tpu_torch import SimConfig, get_scene, init_state, make_run_fn
-from fluid2d_tpu_torch.ops import cuda_phases, cuda_probes, cuda_stencil
+from fluid2d_tpu_torch import SimConfig, get_scene, init_state, make_run_fn, scene_for_dtype
+from fluid2d_tpu_torch.ops import cuda_dtype_probes, cuda_phases, cuda_probes, cuda_stencil
 from fluid2d_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -100,6 +108,152 @@ def test_cuda_kernel_matches_plain(cuda_device, which, res):
     _assert_close(got, plain(*args, **kwargs), wrapper.__name__, 1e-5)
 
 
+def _bf16_calls(res: int, device):
+    """(name, wrapper, plain version, args, kwargs) per kernel variant and
+    pressure chain link, on bf16 state and scene."""
+    cfg = SimConfig.create(resolution=res, re=1000.0, dtype="bfloat16")
+    sc = scene_for_dtype(get_scene(2, res, device), cfg)
+    gen = torch.Generator(device="cpu").manual_seed(res + 1)
+
+    def rnd(lead, scale, offset=0.0):
+        t = offset + scale * torch.randn((*lead, *sc.shape), generator=gen)
+        return t.to(torch.bfloat16).to(device)
+
+    p, pa = rnd((), 0.3), rnd((), 0.3)
+    u, w = rnd((), 8.0), rnd((), 8.0)
+    v, va = rnd((2,), 0.5), rnd((2,), 0.5)
+    vg = [rnd((2,), 0.1) for _ in range(4)]
+    dye = rnd((3,), 0.5, 0.5)
+    dg = [rnd((3,), 0.1) for _ in range(5)]
+    lim = cfg.velocity_limit
+    calls = [
+        ("confinement", cuda_phases.confinement_cuda, cuda_phases.confinement_plain,
+         (v, va, sc.fluid8, cfg.dt, 5.0, cfg.dx), {}),
+        ("cip_velocity", cuda_phases.cip_velocity_phase_cuda, cuda_phases.cip_velocity_phase_plain,
+         (v, p, va, *vg, sc, cfg.re, cfg.dt, cfg.dx), {}),
+        ("cip_dye", cuda_phases.cip_dye_phase_cuda, cuda_phases.cip_dye_phase_plain,
+         (dye, *dg, v, sc, cfg.re, cfg.dt, cfg.dx), {}),
+    ]
+    for scheme in ("upwind", "kk"):
+        calls.append((f"mac_velocity_{scheme}", cuda_phases.mac_velocity_phase_cuda,
+                      cuda_phases.mac_velocity_phase_plain,
+                      (v, p, va, sc, scheme, cfg.re, cfg.dt, cfg.dx), {}))
+        calls.append((f"mac_dye_{scheme}", cuda_phases.mac_dye_phase_cuda,
+                      cuda_phases.mac_dye_phase_plain, (dye, dg[0], v, sc, scheme, cfg.dt, cfg.dx),
+                      {}))
+    # the chain links: bf16 → f32, f32 → f32, f32 → bf16, bf16 → bf16
+    links = {"bf16_f32": (p, pa, torch.float32), "f32_f32": (p.float(), pa.float(), torch.float32),
+             "f32_bf16": (p.float(), pa.float(), torch.bfloat16),
+             "bf16_bf16": (p, pa, torch.bfloat16)}
+    for link, (pc, pal, out) in links.items():
+        for vl in (None, lim):
+            sfx = link + ("_v_limit" if vl else "")
+            calls.append((f"sor_{sfx}", cuda_stencil.sor_iteration_cuda,
+                          cuda_stencil.sor_iteration_plain,
+                          (pc, pal, u, w, sc.pbc_code, sc.fluid8, cfg.sor_omega, cfg.dt, cfg.dx),
+                          {"v_limit": vl, "out_dtype": out}))
+            for n in range(1, 5):
+                calls.append((f"jacobi{n}_{sfx}", cuda_stencil.jacobi_iteration_cuda,
+                              cuda_stencil.jacobi_iteration_plain,
+                              (pc, pal, u, w, sc.pbc_code, sc.not_wall8, cfg.dt, cfg.dx),
+                              {"n_iters": n, "v_limit": vl, "out_dtype": out}))
+    return calls
+
+
+BF16_IDS = ["confinement", "cip_velocity", "cip_dye",
+            *(f"mac_{phase}_{scheme}" for scheme in ("upwind", "kk")
+              for phase in ("velocity", "dye")),
+            *(f"{kernel}_{link}{sfx}" for link in ("bf16_f32", "f32_f32", "f32_bf16", "bf16_bf16")
+              for sfx in ("", "_v_limit")
+              for kernel in ("sor", *(f"jacobi{n}" for n in range(1, 5))))]
+
+
+def _assert_bit_equal(got, ref, what):
+    """Equal to the bit, dtypes included, a NaN equal to any NaN."""
+    assert len(got) == len(ref), what
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape and g.dtype == r.dtype, f"{what}[{k}]"
+        gf, rf = g.float(), r.float()
+        nan = torch.isnan(gf)
+        assert torch.equal(nan, torch.isnan(rf)), f"{what}[{k}]: NaN at other cells"
+        bad = (gf != rf) & ~nan
+        assert not bool(bad.any()), f"{what}[{k}]: {int(bad.sum())} cells differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [RES, RAGGED_RES])
+@pytest.mark.parametrize("which", range(len(BF16_IDS)), ids=BF16_IDS)
+def test_cuda_bf16_kernel_bit_equal_to_plain(cuda_device, which, res):
+    name, wrapper, plain, args, kwargs = _bf16_calls(res, cuda_device)[which]
+    assert name == BF16_IDS[which]
+    before = wrapper.launches
+    got = wrapper(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _assert_bit_equal(got, plain(*args, **kwargs), BF16_IDS[which])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [{}, {"scheme": "upwind"}, {"scheme": "kk"},
+                                    {"pressure_solver": "jacobi", "n_pressure_iter": 6}],
+                         ids=["cip", "upwind", "kk", "cip_jacobi6"])
+def test_cuda_bf16_run_bit_equal_to_eager_run(cuda_device, config):
+    """4 bf16 steps through the kernels and through the plain versions, from
+    a seeded state: every leaf bit-equal."""
+    outs = {}
+    for mode in ("cuda", "eager"):
+        cfg = SimConfig.create(resolution=RES, kernels=mode, dtype="bfloat16", **config)
+        sc = scene_for_dtype(get_scene(2, RES, cuda_device), cfg)
+        gen = torch.Generator(device="cpu").manual_seed(9)
+        st = init_state(sc, cfg, cuda_device)
+        fluid = (sc.mask == 0).float()
+        st = st._replace(v=(0.3 * torch.randn((2, *sc.shape), generator=gen).to(cuda_device)
+                            * fluid).to(torch.bfloat16))
+        outs[mode] = make_run_fn(cfg)(st, sc, 4)
+    got = [leaf for leaf in outs["cuda"] if leaf is not None]
+    ref = [leaf for leaf in outs["eager"] if leaf is not None]
+    assert got[1].dtype == torch.bfloat16
+    _assert_bit_equal(got, ref, "state")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", cuda_dtype_probes.RATE_MODES)
+def test_cuda_dtype_rate_matches_plain(cuda_device, mode, dtype):
+    from fluid2d_tpu_torch.scripts.vpu_dtype_probe import check_dtype_rate
+
+    before = cuda_dtype_probes.dtype_rate_cuda.launches
+    res = check_dtype_rate(mode, dtype, cuda_device, rows=64, cols=256, passes=3072)
+    assert cuda_dtype_probes.dtype_rate_cuda.launches == before + 2
+    assert res["max_err_ulps"] <= res["tol_ulps"] < res["one_step_off_min_ulps"]
+    assert res["max_err_ulps_deep"] <= res["tol_ulps"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", cuda_dtype_probes.COPY_MODES)
+def test_cuda_row_copy_bit_equal(cuda_device, mode, dtype):
+    x = (torch.arange(256 * 256, dtype=torch.float32).reshape(256, 256) * 1e-4).to(dtype)
+    got = cuda_dtype_probes.row_copy_cuda(x.to(cuda_device), mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cuda_dtype_probes.row_copy_plain(x, mode))
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_dtype_probes.row_copy_cuda(x.to(cuda_device)[:, 1:].contiguous(), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["cip_dye_phase", "sor_iteration_f32in_v_limit",
+                                 "jacobi_iteration_n4_f32out"])
+def test_cuda_bf16_mix_twin_bit_equal(cuda_device, mix):
+    ops = profiling.twin_operands(mix, 2 * RAGGED_RES, RAGGED_RES, cuda_device, "bfloat16")
+    before = (cuda_probes.mix_twin_cuda.launches, cuda_probes.mix_twin_bf16_cuda.launches)
+    got = cuda_probes.mix_twin_cuda(ops)
+    torch.cuda.synchronize()
+    assert (cuda_probes.mix_twin_cuda.launches,
+            cuda_probes.mix_twin_bf16_cuda.launches) == (before[0], before[1] + 1)
+    _assert_bit_equal(got, cuda_probes.mix_twin_plain(ops), mix)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_wrong_operands(cuda_device):
     wrapper, _, args, kwargs = _kernel_calls(RES, cuda_device)[2]  # confinement
@@ -171,11 +325,12 @@ def test_cuda_mix_twin_matches_plain(cuda_device, mix):
     """C3 on two registered mixes at a ragged grid: within 1e-5 of the
     plain sum (the same additions in the same order)."""
     ops = profiling.twin_operands(mix, 2 * RAGGED_RES, RAGGED_RES, cuda_device)
-    before = cuda_probes.mix_twin_cuda.launches
+    before = (cuda_probes.mix_twin_cuda.launches, cuda_probes.mix_twin_bf16_cuda.launches)
     got = cuda_probes.mix_twin_cuda(ops)
     torch.cuda.synchronize()
-    assert cuda_probes.mix_twin_cuda.launches == before + 1
-    assert len(got) == sum(profiling._KERNEL_MIXES[mix]["f32_out"])
+    assert (cuda_probes.mix_twin_cuda.launches,
+            cuda_probes.mix_twin_bf16_cuda.launches) == (before[0] + 1, before[1])
+    assert len(got) == sum(profiling._KERNEL_MIXES[mix]["f_out"])
     _assert_close(got, cuda_probes.mix_twin_plain(ops), mix, 1e-5)
 
 

@@ -12,6 +12,11 @@ against the JAX package's, on the CPU:
 * the probes' plain versions against NumPy, the FMA chains' checks
   against a missing round, and the probes' CPU behaviour
   (the FMA probe declines, the copy probe times its plain version);
+* at bf16 transport: the byte ledger of every kernel variant and chain link
+  equals ``mix_bytes(..., itemsize=2)``; the bf16 twin, the dtype-rate
+  chains (C5a, against NumPy with ``ml_dtypes``' bfloat16, and their check
+  against a step more or fewer) and the row-window copies (C5b) in their
+  plain versions;
 * ``roofline_report`` keys on the CPU, and ``trace`` writing a file.
 """
 
@@ -21,10 +26,12 @@ import numpy as np
 import pytest
 import torch
 
+import ml_dtypes
+
 from fluid2d_tpu.config import SimConfig as JaxConfig
 from fluid2d_tpu.utils import profiling as jax_profiling
 import fluid2d_tpu_torch as ft
-from fluid2d_tpu_torch.ops import cuda_probes, launch
+from fluid2d_tpu_torch.ops import cuda_dtype_probes, cuda_phases, cuda_probes, cuda_stencil, launch
 from fluid2d_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -66,7 +73,7 @@ LEDGER_CONFIGS = {
 
 
 def _step_ledger(cfg) -> list[tuple[str, int]]:
-    scene = ft.get_scene(2, RES, "cpu")
+    scene = ft.scene_for_dtype(ft.get_scene(2, RES, "cpu"), cfg)
     state = ft.init_state(scene, cfg, "cpu")
     launch.TRAFFIC_LOG = ledger = []
     try:
@@ -87,6 +94,114 @@ def test_byte_ledger_matches_mix_registry(config):
     per_kernel = profiling.step_kernel_bytes(cfg, RES)
     assert set(per_kernel) == names
     assert sum(per_kernel.values()) == sum(n for _, n in ledger)
+
+
+# configuration → the kernel variants one bf16 step of it runs: the pressure
+# chain's first call returns a float32 pair, its last call reads one.
+LEDGER_CONFIGS_BF16 = {
+    "cip": ({}, {"cip_velocity_phase", "confinement", "sor_iteration_f32out",
+                 "sor_iteration_f32in_v_limit", "cip_dye_phase"}),
+    "kk_sor1": ({"scheme": "kk", "n_pressure_iter": 1},
+                {"mac_velocity_phase_kk", "confinement", "sor_iteration_v_limit",
+                 "mac_dye_phase_kk"}),
+    "upwind_sor3": ({"scheme": "upwind", "n_pressure_iter": 3},
+                    {"mac_velocity_phase_upwind", "confinement", "sor_iteration_f32out",
+                     "sor_iteration_f32in_f32out", "sor_iteration_f32in_v_limit",
+                     "mac_dye_phase_upwind"}),
+    "cip_jacobi6": ({"pressure_solver": "jacobi", "n_pressure_iter": 6},
+                    {"cip_velocity_phase", "confinement", "jacobi_iteration_n4_f32out",
+                     "jacobi_iteration_n2_f32in_v_limit", "cip_dye_phase"}),
+    "kk_jacobi2": ({"scheme": "kk", "pressure_solver": "jacobi"},
+                   {"mac_velocity_phase_kk", "confinement", "jacobi_iteration_n2_v_limit",
+                    "mac_dye_phase_kk"}),
+}
+
+
+@pytest.mark.parametrize("config", list(LEDGER_CONFIGS_BF16))
+def test_byte_ledger_matches_mix_registry_bf16(config):
+    kw, names = LEDGER_CONFIGS_BF16[config]
+    cfg = ft.SimConfig.create(resolution=RES, dtype="bfloat16", **kw)
+    ledger = _step_ledger(cfg)
+    assert {name for name, _ in ledger} == names
+    for name, nbytes in ledger:
+        assert nbytes == profiling.mix_bytes(name, 2 * RES, RES, itemsize=2), name
+    assert profiling.step_kernel_bytes(cfg, RES) == {
+        name: sum(n for k, n in ledger if k == name) for name in names}
+
+
+def _variant_calls(dtype):
+    """(ledger name, wrapper call) for every kernel variant and pressure
+    chain link at the transport `dtype`, on CPU tensors."""
+    scene = ft.scene_for_dtype(ft.get_scene(2, RES, "cpu"),
+                               ft.SimConfig.create(resolution=RES, dtype=dtype))
+    dt = getattr(torch, dtype)
+    shape = scene.shape
+    gen = torch.Generator().manual_seed(3)
+
+    def rnd(*lead):
+        return torch.randn((*lead, *shape), generator=gen).to(dt)
+
+    v, va, p, dye = rnd(2), rnd(2), rnd(), rnd(3)
+    grads = [rnd(2) for _ in range(4)]
+    dgrads = [rnd(3) for _ in range(4)]
+    cfg = ft.SimConfig.create(resolution=RES)
+    calls = [
+        ("confinement", lambda: cuda_phases.confinement_cuda(v, va, scene.fluid8, cfg.dt, 5.0,
+                                                             cfg.dx)),
+        ("cip_velocity_phase", lambda: cuda_phases.cip_velocity_phase_cuda(
+            v, p, va, *grads, scene, cfg.re, cfg.dt, cfg.dx)),
+        ("cip_dye_phase", lambda: cuda_phases.cip_dye_phase_cuda(
+            dye, dye, *dgrads, v, scene, cfg.re, cfg.dt, cfg.dx)),
+    ]
+    for s in ("upwind", "kk"):
+        calls.append((f"mac_velocity_phase_{s}", lambda s=s: cuda_phases.mac_velocity_phase_cuda(
+            v, p, va, scene, s, cfg.re, cfg.dt, cfg.dx)))
+        calls.append((f"mac_dye_phase_{s}", lambda s=s: cuda_phases.mac_dye_phase_cuda(
+            dye, dye, v, scene, s, cfg.dt, cfg.dx)))
+    wides = (False, True) if dt != torch.float32 else (False,)
+    for wide_in in wides:
+        for wide_out in wides:
+            pi = p.float() if wide_in else p
+            out = torch.float32 if wide_out else dt
+            link = ("_f32in" if wide_in else "") + ("_f32out" if wide_out else "")
+            for lim in (None, 10.0):
+                sfx = link + ("" if lim is None else "_v_limit")
+                calls.append(("sor_iteration" + sfx, lambda pi=pi, out=out, lim=lim: (
+                    cuda_stencil.sor_iteration_cuda(pi, pi, v[0], v[1], scene.pbc_code,
+                                                    scene.fluid8, 1.3, cfg.dt, cfg.dx,
+                                                    v_limit=lim, out_dtype=out))))
+                for n in range(1, 5):
+                    calls.append((f"jacobi_iteration_n{n}" + sfx,
+                                  lambda pi=pi, out=out, lim=lim, n=n: (
+                                      cuda_stencil.jacobi_iteration_cuda(
+                                          pi, pi, v[0], v[1], scene.pbc_code, scene.not_wall8,
+                                          cfg.dt, cfg.dx, n_iters=n, v_limit=lim,
+                                          out_dtype=out))))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_variant_logs_its_mix_bytes(dtype):
+    """Each wrapper call logs one ledger entry: its variant's registered
+    mix at the transport dtype's itemsize; the outputs are of the dtypes
+    the mix says (the pair float32 on a ``_f32out`` link)."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    calls = _variant_calls(dtype)
+    names = set()
+    for name, call in calls:
+        launch.TRAFFIC_LOG = ledger = []
+        try:
+            outs = call()
+        finally:
+            launch.TRAFFIC_LOG = None
+        assert ledger == [(name, profiling.mix_bytes(name, 2 * RES, RES, itemsize))], name
+        wide_out = "_f32out" in name
+        for k, o in enumerate(outs):
+            want = torch.float32 if wide_out and k < 2 else getattr(torch, dtype)
+            assert o.dtype == want, f"{name}[{k}]"
+        names.add(name)
+    if dtype == "bfloat16":
+        assert names == set(profiling._KERNEL_MIXES)
 
 
 def test_byte_ledger_is_off_by_default_and_empty_for_eager():
@@ -150,12 +265,109 @@ def test_mix_twin_plain_matches_numpy(mix):
     for t in ops.i8_in:
         acc = acc + t.numpy().astype(np.float32)
     desc = profiling._KERNEL_MIXES[mix]
-    assert len(got) == sum(desc["f32_out"])
-    assert len(ops.f32_in) == sum(desc["f32_in"]) and len(ops.i8_in) == sum(desc["i8_in"])
+    assert len(got) == sum(desc["f_out"]) + sum(desc.get("w_out", ()))
+    assert len(ops.f32_in) == sum(desc["f_in"]) + sum(desc.get("w_in", ()))
+    assert len(ops.i8_in) == sum(desc["i8_in"]) and not ops.bf16_in
     for g in got:
         np.testing.assert_array_equal(g.numpy(), acc)
     planes = 4 * len(ops.f32_in) + len(ops.i8_in) + 4 * len(got)
     assert profiling.mix_bytes(mix, 2 * RES, RES) == planes * 2 * RES * RES
+
+
+def test_bf16_mix_twin_plain_matches_numpy():
+    """The bf16 twin (C5c): bf16 transport planes, float32 pair planes, the
+    sum in float32 in table order, rounded to bf16 in the bf16 outputs."""
+    mix = "jacobi_iteration_n2_f32in_v_limit"
+    ops = profiling.twin_operands(mix, 2 * RES, RES, "cpu", "bfloat16")
+    assert (len(ops.f32_in), len(ops.bf16_in), len(ops.i8_in)) == (2, 2, 2)
+    got = cuda_probes.mix_twin_cuda(ops)
+    acc = np.zeros((2 * RES, RES), np.float32)
+    for t in (*ops.f32_in, *ops.bf16_in, *ops.i8_in):
+        acc = acc + t.float().numpy()
+    assert [g.dtype for g in got] == [torch.bfloat16] * 4
+    for g in got:
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      acc.astype(ml_dtypes.bfloat16).astype(np.float32))
+    # the pair at 4 bytes, u, w and the four outputs at 2, the codes at 1
+    assert profiling.mix_bytes(mix, 2 * RES, RES, 2) == (2 * 4 + 6 * 2 + 2) * 2 * RES * RES
+    for fn in (cuda_probes.mix_twin_cuda, cuda_probes.mix_twin_bf16_cuda):
+        for g, r in zip(fn(ops), got):
+            assert torch.equal(g, r)
+
+
+def test_dtype_rate_check_holds_the_timed_inputs_at_both_depths():
+    """check_dtype_rate on given inputs: the check depth with its one-step-off
+    control, and the timed depth when asked; refuses inputs of another dtype."""
+    from fluid2d_tpu_torch.scripts.vpu_dtype_probe import check_dtype_rate
+
+    x = (2.0 + torch.rand((8, 64), generator=torch.Generator().manual_seed(3))).to(torch.bfloat16)
+    res = check_dtype_rate("fma", torch.bfloat16, "cpu", passes=96, x=x)
+    assert res["max_err_ulps"] == res["max_err_ulps_deep"] == 0.0
+    assert res["one_step_off_min_ulps"] > res["tol_ulps"]
+    assert "max_err_ulps_deep" not in check_dtype_rate("poly", torch.bfloat16, "cpu", x=x)
+    with pytest.raises(TypeError, match="inputs"):
+        check_dtype_rate("fma", torch.float32, "cpu", x=x)
+
+
+def _np_rate(x: np.ndarray, passes: int, mode: str, dtype) -> np.ndarray:
+    """C5a's chains in NumPy: each instruction in float64, rounded to
+    `dtype` (ml_dtypes' bfloat16 or float32) through float32."""
+    c1, c2, c3 = cuda_dtype_probes.RATE_CONSTS
+
+    def rnd(a):
+        return a.astype(np.float32).astype(dtype).astype(np.float64)
+
+    a = x.astype(np.float64)
+    for _ in range(passes // cuda_dtype_probes.PASSES_PER_STEP[mode]):
+        if mode == "fma":
+            a = rnd(a * c1 + c2)
+        elif mode == "poly":
+            a = rnd(rnd(a * a) * c3 + rnd(a * c1 + c2))
+        elif mode == "select":
+            a = rnd(a * np.where(a > 0, c1, -c1) + c2)
+        else:
+            a = rnd(rnd(rnd(a * a) * np.where(a > 0, c3, -c3) + a) * c1 + c2)
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", cuda_dtype_probes.RATE_MODES)
+def test_dtype_rate_plain_matches_numpy_and_sees_a_step(mode, dtype):
+    """C5a's plain version equals a NumPy emulation bit for bit, stays
+    finite at a timed depth, and one step more or fewer moves every element
+    by more than the card's check allows (RATE_TOL_ULPS)."""
+    dt = getattr(torch, dtype)
+    x = (2.0 + torch.rand((32, 64), generator=torch.Generator().manual_seed(5))).to(dt)
+    passes = cuda_dtype_probes.RATE_CHECK_PASSES
+    got = cuda_dtype_probes.dtype_rate_cuda(x, passes, mode)
+    assert got.dtype == dt
+    npdt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    np.testing.assert_array_equal(got.float().numpy(), _np_rate(x.float().numpy(), passes, mode,
+                                                                npdt))
+    step = cuda_dtype_probes.PASSES_PER_STEP[mode]
+    tol = cuda_dtype_probes.RATE_TOL_ULPS[dt]
+    for off in (-step, step):
+        other = cuda_dtype_probes.dtype_rate_plain(x, passes + off, mode)
+        assert float(cuda_dtype_probes.ulps_apart(other, got).min()) > tol
+    assert float(cuda_dtype_probes.ulps_apart(x, got).max()) > tol  # not the input
+    deep = cuda_dtype_probes.dtype_rate_plain(x[:2], 3072, mode)
+    assert bool(torch.isfinite(deep.float()).all())
+    with pytest.raises(ValueError, match="multiple of"):
+        cuda_dtype_probes.dtype_rate_cuda(x, step * 7 + 1 if step > 1 else 0, mode)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", cuda_dtype_probes.COPY_MODES)
+def test_row_copy_plain_matches_numpy(mode, dtype):
+    """C5b's three window moves as NumPy slices (t = 16)."""
+    x = (torch.arange(256 * 256, dtype=torch.float32).reshape(256, 256) * 1e-4).to(
+        getattr(torch, dtype))
+    got = cuda_dtype_probes.row_copy_cuda(x, mode).numpy()
+    a = x.float().numpy()
+    want = {"tail": a[8:24], "head": a[8:24],
+            "realign": np.concatenate([a[:8], a[:8]])}[mode]
+    assert got.dtype == np.float32 and got.shape == (16, 256)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_fma_plain_matches_numpy():

@@ -6,8 +6,9 @@ alternates and CIP gradient planes included — is compared within
 2e-5·max(1, |ref|max), the ROADMAP's multi-step tolerance.
 
 Also: the NumPy exchange round-trips exactly, the package never imports
-JAX, and the config accepts every scheme and solver and refuses what is not
-ported. The MAC and Jacobi runs are held to the JAX package in
+JAX, and the config accepts every scheme and solver and refuses what the
+JAX package refuses. bf16 transport is held to the JAX package in
+tests/test_torch_bf16.py. The MAC and Jacobi runs are held to the JAX package in
 tests/test_torch_mac.py."""
 
 import subprocess
@@ -124,6 +125,9 @@ def test_package_never_imports_jax():
         "ft.FluidSimulator.create(bc_num=2, resolution=16, device='cpu').step(2)\n"
         "ft.FluidSimulator.create(bc_num=2, resolution=16, device='cpu', scheme='kk',\n"
         "                         pressure_solver='jacobi').step(2)\n"
+        "ft.FluidSimulator.create(bc_num=2, resolution=16, device='cpu', dtype='bfloat16').step(2)\n"
+        "import fluid2d_tpu_torch.scripts.vpu_dtype_probe, fluid2d_tpu_torch.scripts.bf16_dma_probe\n"
+        "import fluid2d_tpu_torch.scripts.bf16_geometry_probe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid2d_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -141,11 +145,14 @@ def test_cuda_mode_refuses_cpu_tensors():
         ft.make_run_fn(cfg)(ft.init_state(scene, cfg, "cpu"), scene, 1)
 
 
+# The ids stay those the cases have always had; every transport dtype of the
+# JAX package is ported, so the dtype cases are the ones it refuses too.
 @pytest.mark.parametrize(("kwargs", "match"), [
-    ({"dtype": "bfloat16", "scheme": "kk"}, "not ported"),
+    pytest.param({"dtype": "float16", "scheme": "kk"}, "Unknown transport dtype",
+                 id="kwargs0-not ported"),
     ({"scheme": "bogus"}, "Unknown scheme"),
     ({"pressure_solver": "bogus"}, "Unknown pressure solver"),
-    ({"dtype": "bfloat16"}, "not ported"),
+    pytest.param({"dtype": "float64"}, "Unknown transport dtype", id="kwargs3-not ported"),
     ({"kernels": "pallas"}, "Unknown kernels mode"),
 ])
 def test_config_refuses_what_is_not_ported(kwargs, match):

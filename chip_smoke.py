@@ -22,7 +22,9 @@ Phases, each printed as JSON lines:
 1. device  — the card; nvidia-smi's "name, power.limit" line is printed as is.
 2. build   — nvcc builds fluid2d_tpu_torch/csrc/*.cu (one process per source);
              seconds taken.
-3. kernels — each kernel (and each variant: scheme, iterations, limiter)
+3. kernels — each kernel (and each variant: scheme, iterations, limiter;
+             the standalone CIP advection C1 in its dye form, 3 channels by
+             a given velocity, and its velocity form, 2 channels, vel is f)
              against its plain PyTorch version at the res=1600 shapes on
              seeded random inputs: at float32 every output within
              1e-5·max(1, |ref|max) (in fact 0.0); at bf16 every variant and
@@ -45,7 +47,8 @@ Phases, each printed as JSON lines:
              mode and dtype within RATE_TOL_ULPS of their plain version at 48
              passes, a step more or fewer missing it at every element, and
              the timed fma chains at 3072 passes within RATE_TOL_ULPS too;
-             the row copies (C5b) bit-equal.
+             the row copies (C5b) bit-equal. The C3 twin covers C1's two
+             registered mixes (cip_advect, cip_advect_self).
 4. parity  — per path (presets and bf16 paths included), a seeded smooth
              state, 4 steps with kernels="cuda" and with kernels="eager" on
              the card: every state leaf within 2e-5·max(1, |ref|max) at
@@ -75,8 +78,26 @@ Phases, each printed as JSON lines:
              vpu_dtype_probe (C5a, each mode, held to its plain version on
              its timed inputs at 48 passes and at 3072), bf16_dma_probe (C5b, a FAIL
              raises) and bf16_geometry_probe (C5c).
+9. last probes — C1 at the op level (cip_advect_cuda, both forms, float32
+             and bf16, finite outputs of the input's shape and dtype) and the
+             last probe scripts through their entry points: the whole
+             vpu_rate_sweep (C5d, its own checks: every chain count and depth
+             within fma_rate_error_bound, one round short beyond it),
+             dma_geometry_sweep --only incount,triples,outs,bigcopy (C5e,
+             each case within 1e-5 of its plain version), dma_geometry_bench
+             (C5f) and dma_rowwin_1600_check at Y=1600 (C5g, must print OK),
+             and the el-op toys (C6) at (32, 128), (8, 128) and 3200×1600.
+             Then, with the counts read, each new kernel held to its plain
+             version on the inputs it times, and timed (CUDA events around
+             200 calls in a row, loop_ms: most of these kernels take less
+             time than the host needs to launch one): the sweep's 8-chain
+             case within its bound, with the one-round-short control; the
+             geometry twin within 1e-5 at h = 0, 1 and 8, with channels; the
+             row window bit-equal to 2·a and to its plain version; the three
+             toys bit-equal at the three shapes, with the el-op counter's
+             counts of their plain versions.
 
-Then the kernel table as one JSON line (launches summed over phases 5–8),
+Then the kernel table as one JSON line (launches summed over phases 5–9),
 and as the last line {"ok": true, "device": {...}}. Any failure raises: the
 exit code is not 0 and the last line is not printed. Without a CUDA card it
 exits non-zero at once.
@@ -84,6 +105,8 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import statistics
@@ -110,7 +133,15 @@ from fluid2d_tpu_torch.ops import (
     cuda_stencil,
     launch,
 )
-from fluid2d_tpu_torch.scripts import bf16_dma_probe, bf16_geometry_probe, vpu_dtype_probe
+from fluid2d_tpu_torch.scripts import (
+    bf16_dma_probe,
+    bf16_geometry_probe,
+    dma_geometry_bench,
+    dma_geometry_sweep,
+    dma_rowwin_1600_check,
+    vpu_dtype_probe,
+    vpu_rate_sweep,
+)
 from fluid2d_tpu_torch.utils import profiling
 
 RES = 1600
@@ -119,6 +150,7 @@ BF16 = torch.bfloat16
 KERNEL_TOL = 1e-5
 STEP_TOL = 2e-5
 TIMED_CALLS = 20
+LOOP_CALLS = 200  # calls in a row that phase 9 times together (loop_ms)
 PARITY_STEPS = 4
 RUN_STEPS = 100
 WARMUP_STEPS = 2
@@ -161,8 +193,21 @@ KERNELS = (
      "fluid2d_tpu_torch/csrc/dtype_probes.cu", "scripts/vpu_dtype_probe.py:101"),
     ("row_copy", cuda_dtype_probes.row_copy_cuda,
      "fluid2d_tpu_torch/csrc/dtype_probes.cu", "scripts/bf16_dma_probe.py:84"),
+    ("cip_advect", cuda_stencil.cip_advect_cuda,
+     "fluid2d_tpu_torch/csrc/cip_phases.cu", "fluid2d_tpu/ops/pallas_stencil.py:948"),
+    ("fma_sweep", cuda_probes.fma_sweep_cuda,
+     "fluid2d_tpu_torch/csrc/probes.cu", "scripts/vpu_rate_sweep.py:49"),
+    ("geometry_twin", cuda_probes.geometry_twin_cuda,
+     "fluid2d_tpu_torch/csrc/probes.cu", "scripts/dma_geometry_sweep.py:232"),
+    ("row_window", cuda_probes.row_window_cuda,
+     "fluid2d_tpu_torch/csrc/probes.cu", "scripts/dma_rowwin_1600_check.py:57"),
+    ("toy_elementwise", cuda_probes.toy_elementwise_cuda,
+     "fluid2d_tpu_torch/csrc/probes.cu", "tests/test_profiling.py:134"),
 )
-PROBES = ("copy_add1", "mix_twin", "mix_twin_bf16", "fma_rate", "dtype_rate", "row_copy")
+PROBES = ("copy_add1", "mix_twin", "mix_twin_bf16", "fma_rate", "dtype_rate", "row_copy",
+          "fma_sweep", "geometry_twin", "row_window", "toy_elementwise")
+SWEEP_HEAD = {"chains": 8, "depth": 1024, "threads": 256}  # the fma_sweep row's timed case
+TOY_SHAPES = ((32, 128), (8, 128), (2 * RES, RES))
 # The port's kernels as torch.profiler names them (phase 4, profile).
 PORT_KERNELS = ("velocity_bc_kernel", "dye_bc_kernel", "non_advection_kernel",
                 "grad_update_kernel", "advect_kernel", "curl_kernel", "confine_kernel",
@@ -191,8 +236,9 @@ PATHS = {
 }
 RUN_PATHS = ("cip", "upwind", "kk", "cip_jacobi2", "cip_bf16")
 
-# Kernel runs per step of each path; a kernel not named runs 0 times. A bf16
-# path runs what its float32 path runs.
+# Kernel runs per step of each path; a kernel not named runs 0 times (the
+# standalone CIP advection C1 and every probe on every path). A bf16 path runs
+# what its float32 path runs.
 _CIP = {"cip_velocity_phase": 1, "confinement": 1, "sor_iteration": 2, "cip_dye_phase": 1}
 _MAC = {"confinement": 1, "sor_iteration": 2, "mac_velocity_phase": 1, "mac_dye_phase": 1}
 _CIP_JACOBI = {"cip_velocity_phase": 1, "confinement": 1, "cip_dye_phase": 1}
@@ -271,6 +317,22 @@ def median_ms(fn, calls: int = TIMED_CALLS) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def loop_ms(fn, calls: int = TIMED_CALLS) -> float:
+    """Device time of one call (ms): CUDA events around `calls` calls in a
+    row after a warm-up, over the count — for kernels shorter than the host's
+    time to launch them, whose single-call events would time the host."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def once_ms(fn):
     """fn's result and the device time of that one call (ms, CUDA events)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -319,6 +381,11 @@ def kernel_cases(scene, cfg, dev, dtype=torch.float32):
     def mac_dye(scheme):
         return (dye, da, v, scene, scheme, cfg.dt, cfg.dx)
 
+    # C1: the dye form (3 channels by the velocity) and the velocity form
+    # (vel is f: v passed twice, the same tensor)
+    adv_dye = (dye, dg[0], dg[1], v, da, dg[2], dg[3], scene.fluid8, cfg.dt, cfg.dx)
+    adv_vel = (v, vg[0], vg[1], v, va, vg[2], vg[3], scene.fluid8, cfg.dt, cfg.dx)
+
     # pressure links: (ledger suffix, p, p_alt, out_dtype); the main path's
     # two SOR calls are the first two at bf16.
     if dtype == torch.float32:
@@ -364,6 +431,10 @@ def kernel_cases(scene, cfg, dev, dtype=torch.float32):
             for scheme in ("upwind", "kk")
         ],
         "jacobi_iteration": jacobi,
+        "cip_advect": [
+            (variant, *pair(cuda_stencil.cip_advect_cuda, cuda_stencil.cip_advect_plain, args))
+            for variant, args in (("", adv_dye), ("_self", adv_vel))
+        ],
     }
 
 
@@ -428,11 +499,17 @@ def main() -> None:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    phase_s = {}
+
+    def lap(name: str) -> None:
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+
     # 2. build
     t0 = time.perf_counter()
     lib_path = _build.build_library()
     _build.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib_path.name})
+    lap("1-2 device, build")
 
     # 3. kernels against their plain versions at the main path's shapes, and
     # the byte ledger of each against its registered operand mix
@@ -444,35 +521,45 @@ def main() -> None:
 
     # 3b. the roofline's probes and the bf16 probes against their plain versions
     check_probes(get_scene(SCENE, RES, dev).shape, dev, table)
+    lap("3 kernels, probes")
 
     # 4. parity of every path: kernels against the eager path, 4 steps; the
     # profiler's kernel list of a headline step at both dtypes
     for path in PATHS:
         check_parity(path, dev)
     check_profile(dev)
+    lap("4 parity, profile")
 
     # 5. the paths through the user's entry point
     launches = {}
     for path in RUN_PATHS:
         launches[path] = run_path(path, dev)
+    lap("5 run")
 
     # 6. the bench entry points: the headline and presets 1-6, both dtypes
     for dtype in ("float32", "bfloat16"):
         launches[f"bench_{dtype}"] = run_bench(dev, dtype)
+    lap("6 bench")
 
     # 7. the roofline report (bench --roofline)
     for scheme, dtype in (("cip", "float32"), ("kk", "float32"), ("cip", "bfloat16")):
         launches[f"roofline_{scheme}_{dtype}"] = run_roofline(scheme, dtype, dev)
+    lap("7 roofline")
 
     # 8. the bf16 probe scripts through their entry points
     launches["bf16_probes"] = run_bf16_probes(dev)
+    lap("8 bf16 probes")
+
+    # 9. C1 at the op level and the last probe scripts through their entry points
+    launches["last_probes"] = run_last_probes(dev, table)
+    lap("9 last probes")
 
     names = [name for name, *_ in KERNELS]
     totals = {name: sum(counts.get(name, 0) for counts in launches.values()) for name in names}
     missing = [name for name, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched by a driven path: {missing}")
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "phase_seconds": phase_s})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": totals[name],
@@ -523,7 +610,8 @@ def check_kernels(cases, scene, dtype, table) -> None:
             if ledger != want:
                 raise AssertionError(f"registry[{name + variant}{suffix}]: ledger {ledger}, "
                                      f"mix {want}")
-            timed = k == 0 or dtype == torch.float32
+            # at bf16 the first variant of each kernel, and both forms of C1
+            timed = k == 0 or dtype == torch.float32 or name == "cip_advect"
             ms = median_ms(kernel) if timed else None
             plain_ms = median_ms(plain) if timed else None
             flops, _ = profiling.collect_elops(plain)
@@ -764,6 +852,163 @@ def run_bf16_probes(dev) -> dict[str, int]:
     counts = read_counts()
     emit({"phase": "bf16_probe", "launches": counts})
     return counts
+
+
+def _advect_calls(dev) -> dict[str, tuple]:
+    """C1's op-level calls at the main path's grid: the dye form and the
+    velocity form (vel is f), float32 and bf16, on seeded fields."""
+    scene = get_scene(SCENE, RES, dev)
+    cfg = SimConfig.create(resolution=RES)
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    calls = {}
+    for dtype in (torch.float32, BF16):
+        def rnd(lead, scale, dtype=dtype):
+            t = scale * torch.randn((lead, *scene.shape), generator=gen, device=dev)
+            return t.to(dtype)
+
+        v = rnd(2, 8.0)
+        d, v_alt = rnd(3, 0.5), rnd(2, 0.5)
+        sfx = "" if dtype == torch.float32 else "_bf16"
+        calls["dye" + sfx] = (d, rnd(3, 0.1), rnd(3, 0.1), v, rnd(3, 0.5), rnd(3, 0.1),
+                              rnd(3, 0.1), scene.fluid8, cfg.dt, cfg.dx)
+        calls["velocity" + sfx] = (v, rnd(2, 0.1), rnd(2, 0.1), v, v_alt, rnd(2, 0.1),
+                                   rnd(2, 0.1), scene.fluid8, cfg.dt, cfg.dx)
+    return calls
+
+
+def run_last_probes(dev, table) -> dict[str, int]:
+    """Phase 9: C1 at the op level and the last probe scripts (C5d–g) and
+    toys (C6) through their entry points, with the counters at 0; then, the
+    counts read, each new kernel held to its plain version on the inputs it
+    times and timed into the kernel table. A failed check raises."""
+    reset_counts()
+    for form, args in _advect_calls(dev).items():
+        outs = cuda_stencil.cip_advect_cuda(*args)
+        if not all(o.shape == args[0].shape and o.dtype == args[0].dtype
+                   and bool(torch.isfinite(o.float()).all()) for o in outs):
+            raise AssertionError(f"cip_advect[{form}]: outputs not finite or misshaped")
+    swept = vpu_rate_sweep.sweep(device=dev)
+    emit({"phase": "last_probe", "probe": "vpu_rate_sweep", "best": swept["best"],
+          "checks": swept["checks"],
+          "cases": {c["tag"]: c["Gelops"] for c in swept["cases"]}})
+    geo = dma_geometry_sweep.main(["--only", "incount,triples,outs,bigcopy"])
+    emit({"phase": "last_probe", "probe": "dma_geometry_sweep", **geo})
+    geo_bench = dma_geometry_bench.bench(RES, device=dev)
+    emit({"phase": "last_probe", "probe": "dma_geometry_bench", **geo_bench})
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        dma_rowwin_1600_check.main(["1600"])
+    print(text.getvalue(), end="", flush=True)
+    if "values OK" not in text.getvalue():
+        raise AssertionError(f"dma_rowwin_1600_check 1600: {text.getvalue()!r}")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    toys = {shape: torch.randn(shape, generator=gen, device=dev) for shape in TOY_SHAPES}
+    for x in toys.values():
+        for op in cuda_probes.TOY_OPS:
+            cuda_probes.toy_elementwise_cuda(x, op)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    emit({"phase": "last_probe", "launches": counts})
+
+    check_fma_sweep(dev, swept, table)
+    check_geometry_twin(dev, table)
+    check_row_window(dev, table)
+    check_toys(toys, table)
+    return counts
+
+
+def check_fma_sweep(dev, swept, table) -> None:
+    """The sweep's timed 8-chain case at full depth on its timed inputs
+    (the sweep checked every chain count and depth before timing): within
+    fma_rate_error_bound, one round short beyond it; timed with its plain
+    version."""
+    n, d, threads = SWEEP_HEAD["chains"], SWEEP_HEAD["depth"], SWEEP_HEAD["threads"]
+    x = vpu_rate_sweep.sweep_inputs(2048, 1024, dev)
+    res = vpu_rate_sweep.check_chains(x, n, d, threads)
+    ms = loop_ms(lambda: cuda_probes.fma_sweep_cuda(x, d, n, threads), LOOP_CALLS)
+    plain_ms = loop_ms(lambda: cuda_probes.fma_rate_plain(x, d, n), PLAIN_FMA_CALLS)
+    b = bound(2 * x.numel() * 4, 2 * x.numel() * d)
+    err = max(c["max_abs_err"] for c in swept["checks"].values())
+    _row(table, "fma_sweep", "", err, ms, plain_ms, *b)
+    table["fma_sweep"] |= {"case": SWEEP_HEAD, "check": res, "best": swept["best"]}
+    emit({"phase": "last_probe_check", "name": "fma_sweep", **SWEEP_HEAD, **res, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": b[0]})
+
+
+def check_geometry_twin(dev, table) -> None:
+    """dma_geometry_bench's four geometries at the main path's grid (h = 1,
+    0 and 8 with 3 channels on z; the packed one, h = 8) within KERNEL_TOL of
+    the plain version; the h = 1 dye mix heads the row."""
+    for name in dma_geometry_bench.GEOMETRIES:
+        ops = dma_geometry_bench.geometry(name, RES, dev)
+        got = cuda_probes.geometry_twin_cuda(ops)
+        torch.cuda.synchronize()
+        ref = cuda_probes.geometry_twin_plain(ops)
+        err, _ = max_errors(got, ref, f"geometry_twin[{name}]", KERNEL_TOL)
+        ms = loop_ms(lambda ops=ops: cuda_probes.geometry_twin_cuda(ops), LOOP_CALLS)
+        plain_ms = loop_ms(lambda ops=ops: cuda_probes.geometry_twin_plain(ops), 5)
+        flops, _ = profiling.collect_elops(cuda_probes.geometry_twin_plain, ops)
+        b = bound(ops.nbytes, flops)
+        _row(table, "geometry_twin", f"_{name}", err, ms, plain_ms, *b)
+        emit({"phase": "last_probe_check", "name": f"geometry_twin_{name}", "h": ops.h,
+              "channels": ops.channels, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b[0], "GBps": ops.nbytes / ms / 1e6})
+        del ops, got, ref
+
+
+def check_row_window(dev, table) -> None:
+    """C5g at Y=1600 on seeded normal values: bit-equal to 2·a and to the
+    plain windows; timed beside torch.mul(a, 2.0, out=o)."""
+    t = cuda_probes.row_window_tile(2 * RES, RES)
+    a = torch.randn((2 * RES, RES), generator=torch.Generator(device=dev).manual_seed(97),
+                    device=dev)
+    got = cuda_probes.row_window_cuda(a, t)
+    torch.cuda.synchronize()
+    err = bit_errors((got, got), (2.0 * a, cuda_probes.row_window_plain(a, t)), "row_window")
+    ms = loop_ms(lambda: cuda_probes.row_window_cuda(a, t), LOOP_CALLS)
+    plain_ms = loop_ms(lambda: cuda_probes.row_window_plain(a, t))
+    o = torch.empty_like(a)
+    library_ms = loop_ms(lambda: torch.mul(a, 2.0, out=o), LOOP_CALLS)
+    b = bound(2 * a.numel() * 4, a.numel())
+    _row(table, "row_window", "", err, ms, plain_ms, *b, library_ms=library_ms)
+    table["row_window"] |= {"t": t, "h": 8, "window_bytes": (t + 16) * RES * 4}
+    emit({"phase": "last_probe_check", "name": "row_window", "t": t, "bit_equal": True, "ms": ms,
+          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b[0]})
+
+
+def check_toys(toys, table) -> None:
+    """C6: every toy bit-equal to its plain version at every shape; the
+    el-op counter on the plain versions (tests/test_profiling.py:143, :168);
+    the division toy at 3200×1600 heads the row beside torch.div, the x·3
+    toy beside torch.mul."""
+    for shape, x in toys.items():
+        for op in cuda_probes.TOY_OPS:
+            bit_errors((cuda_probes.toy_elementwise_cuda(x, op),),
+                       (cuda_probes.toy_elementwise_plain(x, op),), f"toy_{op}{list(shape)}")
+    small, tiny = toys[(32, 128)], toys[(8, 128)]
+    elops = {"mul2add1_32x128": profiling.collect_elops(cuda_probes.toy_elementwise_plain, small,
+                                                        "mul2add1")[0],
+             **{f"{op}_8x128": profiling.collect_elops(cuda_probes.toy_elementwise_plain, tiny,
+                                                       op)[0] for op in ("div3", "mul3")}}
+    if (elops["mul2add1_32x128"] != 2 * 8 * 128 * 4
+            or not elops["div3_8x128"] > elops["mul3_8x128"]):
+        raise AssertionError(f"el-op counter on the toys: {elops}")
+    x = toys[(2 * RES, RES)]
+    o = torch.empty_like(x)
+    library = {"div3": lambda: torch.div(x, 3.0, out=o),
+               "mul3": lambda: torch.mul(x, 3.0, out=o), "mul2add1": None}
+    for op in ("div3", "mul3", "mul2add1"):
+        ms = loop_ms(lambda op=op: cuda_probes.toy_elementwise_cuda(x, op), LOOP_CALLS)
+        plain_ms = loop_ms(lambda op=op: cuda_probes.toy_elementwise_plain(x, op), LOOP_CALLS)
+        library_ms = loop_ms(library[op], LOOP_CALLS) if library[op] else None
+        flops, _ = profiling.collect_elops(cuda_probes.toy_elementwise_plain, x, op)
+        b = bound(2 * x.numel() * 4, flops)
+        _row(table, "toy_elementwise", f"_{op}", 0.0, ms, plain_ms, *b, library_ms=library_ms)
+        if library_ms is not None:
+            table["toy_elementwise"][f"library_ms_{op}"] = library_ms
+    table["toy_elementwise"] |= {"op": "div3", "shape": [2 * RES, RES], "elops": elops}
+    emit({"phase": "last_probe_check", "name": "toy_elementwise", "bit_equal": True,
+          "elops": elops, **table["toy_elementwise"]})
 
 
 def check_parity(path: str, dev) -> None:

@@ -1,7 +1,8 @@
 // Cubic CIP advection of one cell's (value, ∂x, ∂y) triplet.
 //
 // The counterpart of fluid2d_tpu/ops/pallas_stencil.py:cip_advect_window_expr
-// and cip_velocity_ctx, shared by the velocity and the dye phase. The
+// and cip_velocity_ctx, shared by the velocity and the dye phase and the
+// standalone advection (f2d_cip_advect, cip_phases.cu). The
 // arithmetic is the port's eager ops/cip.py:cip_advect (reference
 // fs/solver.py:282-332) operation for operation, rounded as PyTorch rounds
 // it on the card (common.cuh). Both upwind masks are
@@ -24,12 +25,13 @@ struct CipCell {
   float f, fx, fy;
 };
 
-// f, fx, fy: one channel's float planes (the phase's non-advected values);
-// u, w: the carrying velocity's planes, of storage type V.
-template <typename V>
-__device__ __forceinline__ CipCell cip_advect_cell(const float* __restrict__ f,
-                                                   const float* __restrict__ fx,
-                                                   const float* __restrict__ fy,
+// f, fx, fy: one channel's planes of type F (float for the phases'
+// non-advected values; the storage type for the standalone advection, widened
+// on load); u, w: the carrying velocity's planes, of storage type V.
+template <typename V, typename F>
+__device__ __forceinline__ CipCell cip_advect_cell(const F* __restrict__ f,
+                                                   const F* __restrict__ fx,
+                                                   const F* __restrict__ fy,
                                                    const V* __restrict__ u,
                                                    const V* __restrict__ w, const Grid& g,
                                                    int i, int j, const CipConsts& c) {
@@ -44,9 +46,9 @@ __device__ __forceinline__ CipCell cip_advect_cell(const float* __restrict__ f,
   const int ju = up_y ? j - 1 : j + 1;  // upwind column
   const long long k_im = g.at(iu, j), k_jm = g.at(i, ju), k_imjm = g.at(iu, ju);
 
-  const float f0 = f[k], f_im = f[k_im], f_jm = f[k_jm], f_imjm = f[k_imjm];
-  const float fx0 = fx[k], fx_im = fx[k_im], fx_jm = fx[k_jm];
-  const float fy0 = fy[k], fy_im = fy[k_im], fy_jm = fy[k_jm];
+  const float f0 = ld(f, k), f_im = ld(f, k_im), f_jm = ld(f, k_jm), f_imjm = ld(f, k_imjm);
+  const float fx0 = ld(fx, k), fx_im = ld(fx, k_im), fx_jm = ld(fx, k_jm);
+  const float fy0 = ld(fy, k), fy_im = ld(fy, k_im), fy_jm = ld(fy, k_jm);
 
   const float tmp1 = f0 - f_jm - f_im + f_imjm;
   const float tmp2 = f_im - f0;

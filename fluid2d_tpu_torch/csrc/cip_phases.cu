@@ -1,4 +1,4 @@
-// The CIP velocity phase and the CIP dye phase.
+// The CIP velocity phase, the CIP dye phase and the standalone CIP advection.
 //
 // Replace fluid2d_tpu/ops/pallas_phases.py:cip_velocity_phase_pallas (body
 // _cip_velocity_body) and cip_dye_phase_pallas (body _cip_dye_body). The
@@ -96,12 +96,14 @@ __global__ void grad_update_kernel(const float* __restrict__ f_na,
 
 // CIP advection at fluid cells, the kept values elsewhere; clamp01 applies
 // the dye's [0, 1] clamp (fminf/fmaxf: NaN → 0) to the value output. The
-// carrying velocity is of storage type V.
-template <typename S, typename V>
-__global__ void advect_kernel(const float* __restrict__ f_na, const float* __restrict__ gx_na,
-                              const float* __restrict__ gy_na, const V* __restrict__ u,
+// carrying velocity is of storage type V; the advected planes and the kept
+// value plane of type F: float in the phases (stage results), the storage
+// type in the standalone advection (f2d_cip_advect).
+template <typename S, typename V, typename F>
+__global__ void advect_kernel(const F* __restrict__ f_na, const F* __restrict__ gx_na,
+                              const F* __restrict__ gy_na, const V* __restrict__ u,
                               const V* __restrict__ w, const int8_t* __restrict__ fluid,
-                              const float* __restrict__ keep_f, const S* __restrict__ keep_gx,
+                              const F* __restrict__ keep_f, const S* __restrict__ keep_gx,
                               const S* __restrict__ keep_gy, S* __restrict__ out_f,
                               S* __restrict__ out_gx, S* __restrict__ out_gy, Grid g,
                               CipConsts consts, int clamp01) {
@@ -113,7 +115,7 @@ __global__ void advect_kernel(const float* __restrict__ f_na, const float* __res
   if (fluid[k] != 0) {
     r = f2d::cip_advect_cell(f_na + off, gx_na + off, gy_na + off, u, w, g, i, j, consts);
   } else {
-    r.f = keep_f[off + k];
+    r.f = ld(keep_f, off + k);
     r.fx = ld(keep_gx, off + k);
     r.fy = ld(keep_gy, off + k);
   }
@@ -142,9 +144,9 @@ int cip_velocity_phase(const S* v, const S* p, const S* v_alt, const S* vx, cons
                                                    not_wall8, vx_na32, vy_na32, vx_na, vy_na, g,
                                                    inv_two_dx);
   F2D_CHECK_LAUNCH();
-  advect_kernel<S, float><<<blocks, threads, 0, s>>>(v_na32, vx_na32, vy_na32, v_na32,
-                                                     v_na32 + plane, fluid8, v_bc, vx, vy, v_out,
-                                                     vx_out, vy_out, g, c, 0);
+  advect_kernel<S, float, float><<<blocks, threads, 0, s>>>(v_na32, vx_na32, vy_na32, v_na32,
+                                                            v_na32 + plane, fluid8, v_bc, vx, vy,
+                                                            v_out, vx_out, vy_out, g, c, 0);
   F2D_CHECK_LAUNCH();
   return 0;
 }
@@ -168,14 +170,54 @@ int cip_dye_phase(const S* dye, const S* dye_alt, const S* dyex, const S* dyex_a
                                                    not_wall8, dx_na32, dy_na32, dx_na, dy_na, g,
                                                    inv_two_dx);
   F2D_CHECK_LAUNCH();
-  advect_kernel<S, S><<<blocks, threads, 0, s>>>(d_na32, dx_na32, dy_na32, vel, vel + plane,
-                                                 fluid8, d_bc, dyex, dyey, d_out, dx_out, dy_out,
-                                                 g, c, 1);
+  advect_kernel<S, S, float><<<blocks, threads, 0, s>>>(d_na32, dx_na32, dy_na32, vel,
+                                                        vel + plane, fluid8, d_bc, dyex, dyey,
+                                                        d_out, dx_out, dy_out, g, c, 1);
+  F2D_CHECK_LAUNCH();
+  return 0;
+}
+
+// Standalone CIP advection (C1): every plane of storage type S, widened on
+// load; each output rounded once.
+template <typename S>
+int cip_advect(const void* f, const void* fx, const void* fy, const void* u, const void* w,
+               const void* alt_f, const void* alt_fx, const void* alt_fy, const int8_t* fluid8,
+               void* out_f, void* out_fx, void* out_fy, Grid g, int C, CipConsts c,
+               cudaStream_t s) {
+  auto in = [](const void* p) { return static_cast<const S*>(p); };
+  auto out = [](void* p) { return static_cast<S*>(p); };
+  advect_kernel<S, S, S><<<f2d::launch_blocks(g.X, g.Y, C), f2d::launch_threads(), 0, s>>>(
+      in(f), in(fx), in(fy), in(u), in(w), fluid8, in(alt_f), in(alt_fx), in(alt_fy),
+      out(out_f), out(out_fx), out(out_fy), g, c, 0);
   F2D_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
+
+// Standalone CIP advection (replaces fluid2d_tpu/ops/pallas_stencil.py:
+// cip_advect_pallas): where(fluid, cip_advect(f, fx, fy, u, w), alt) per
+// output. f, fx, fy, alt_f, alt_fx, alt_fy and the three outputs are
+// (C, X, Y); u and w (X, Y) planes: the carrying velocity's two planes, or
+// f's first two when the velocity advects itself (the read-only pointers may
+// alias; no output aliases an input, the wrapper checks). Every field is
+// stored as bf16 when bf16_storage != 0, else as float; fluid8 (X, Y) int8.
+// Constants: dt, dx, dx², dx³, 1/dx, 1/dx², rounded as CipConsts says.
+extern "C" int f2d_cip_advect(const void* f, const void* fx, const void* fy, const void* u,
+                              const void* w, const void* alt_f, const void* alt_fx,
+                              const void* alt_fy, const int8_t* fluid8, void* out_f, void* out_fx,
+                              void* out_fy, int X, int Y, int C, int bf16_storage, float dt,
+                              float dx, float dx2, float dx3, float inv_dx, float inv_dx2,
+                              void* stream) {
+  const CipConsts c{dt, dx, dx2, dx3, inv_dx, inv_dx2, 0.0f, 0.0f};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_storage) {
+    return cip_advect<bf16>(f, fx, fy, u, w, alt_f, alt_fx, alt_fy, fluid8, out_f, out_fx, out_fy,
+                            Grid{X, Y}, C, c, s);
+  }
+  return cip_advect<float>(f, fx, fy, u, w, alt_f, alt_fx, alt_fy, fluid8, out_f, out_fx, out_fy,
+                           Grid{X, Y}, C, c, s);
+}
 
 // All fields (2, X, Y) except p (X, Y); v_bc is scratch. Outputs: the
 // advected (v, vx, vy) and the new alternates (v_na, vx_na, vy_na). The

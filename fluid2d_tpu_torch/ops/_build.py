@@ -77,8 +77,19 @@ _SIGNATURES = {
     "f2d_mix_twin": [_P] + [_I] * 3 + [_L, _P],
     # plane table, n_f32, n_bf16, n_i8, n_out32, n_out16, cells, stream
     "f2d_mix_twin_bf16": [_P] + [_I] * 5 + [_L, _P],
+    # f, fx, fy, u, w, alt_f, alt_fx, alt_fy, fluid8, 3 outputs, X, Y, C,
+    # bf16 storage, dt, dx, dx², dx³, 1/dx, 1/dx², stream
+    "f2d_cip_advect": [_P] * 12 + [_I] * 4 + [_F] * 6 + [_P],
     # x, o, n, rounds, c1, c2, stream
     "f2d_fma_rate": [_P, _P, _L, _I, _F, _F, _P],
+    # x, o, n, rounds, nchain, threads, c1, c2, stream
+    "f2d_fma_sweep": [_P, _P, _L, _I, _I, _I, _F, _F, _P],
+    # plane table, n_chan, n_shared, n_i8, n_out, X, Y, C, h, block rows, stream
+    "f2d_geometry_twin": [_P] + [_I] * 9 + [_P],
+    # a, out, X, Y, t, h, stream
+    "f2d_row_window": [_P, _P] + [_I] * 4 + [_P],
+    # x, o, n, op, c, stream
+    "f2d_toy_elementwise": [_P, _P, _L, _I, _F, _P],
     # x, o, n (bf16: pairs), steps, mode, c1, c2, c3, stream
     "f2d_dtype_rate": [_P, _P, _L, _I, _I, _F, _F, _F, _P],
     "f2d_dtype_rate_bf16": [_P, _P, _L, _I, _I, _F, _F, _F, _P],

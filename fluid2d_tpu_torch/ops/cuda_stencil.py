@@ -1,5 +1,6 @@
-"""Pressure iterations, red-black SOR and Jacobi: the CUDA kernels and
-their plain PyTorch versions.
+"""Pressure iterations, red-black SOR and Jacobi, and the standalone CIP
+advection: the CUDA kernels and their plain PyTorch versions (the
+counterpart of ``fluid2d_tpu/ops/pallas_stencil.py``).
 
 Source notes.
 
@@ -33,6 +34,30 @@ Source notes.
   20 MB per plane). Fusing the iterations with a per-tile halo is later
   work.
 
+``cip_advect_cuda`` (C1)
+  Replaces: ``fluid2d_tpu/ops/pallas_stencil.py:948 cip_advect_pallas``
+  (body ``_cip_kernel`` :913): ``where(fluid, cip_advect(f, fx, fy, vel),
+  alt)`` per output, C channels, the velocity given or ``vel is f`` (the
+  velocity advecting itself).
+  Kernel: ``fluid2d_tpu_torch/csrc/cip_phases.cu`` ``f2d_cip_advect``, the
+  advection stage of the CIP phases (``advect_kernel``,
+  ``csrc/cip_advect.cuh``) with its planes at the storage type: one launch,
+  one thread per cell, channels on ``blockIdx.z``, no clamp.
+  Bound on the H100: bytes. At 3200×1600 float32 the dye form (C = 3, a
+  separate velocity) moves 29 planes and the mask, 599.0 MB (0.179 ms at
+  3.35 TB/s); the velocity form (C = 2, ``vel is f``) 373.8 MB (0.112 ms);
+  about 120 flops per cell and channel (0.03 ms at 67 TFLOP/s).
+  What the design does about it: nothing yet, as the phases' advection
+  stage: the upwind and gradient neighbours are read from device memory and
+  mostly hit L1/L2.
+  Storage: every field float32 or bfloat16, one dtype per call; bf16 is
+  widened on load, the arithmetic is float32 and each output is rounded
+  once, so a bf16 call is bit-identical to its plain version on the card, as
+  ``_cip_kernel``'s ``_ext`` / ``_cast_store`` round. Ledger names:
+  ``cip_advect`` (a separate velocity, C = 3) and ``cip_advect_self``
+  (``vel is f``, C = 2), the two registered forms; any other channel count
+  appends ``_c<C>``.
+
 Storage. The velocity ``u, w`` (and the limited velocity) is stored in the
 state's transport dtype, float32 or bfloat16. The pressure pair read and
 the pair returned are each that dtype or float32: a solve of several calls
@@ -50,6 +75,7 @@ from __future__ import annotations
 import torch
 
 from fluid2d_tpu_torch.ops import launch as _launch
+from fluid2d_tpu_torch.ops.cip import cip_advect
 from fluid2d_tpu_torch.ops.launch import (
     STORAGE_DTYPES,
     launch,
@@ -58,6 +84,7 @@ from fluid2d_tpu_torch.ops.launch import (
     operand_bytes,
     recip32,
     require,
+    require_no_alias,
 )
 from fluid2d_tpu_torch.ops.limiters import limit_vector_norm
 from fluid2d_tpu_torch.ops.pressure import jacobi_pressure_iteration, sor_pressure_iteration
@@ -69,6 +96,9 @@ __all__ = [
     "jacobi_iteration_cuda",
     "jacobi_iteration_plain",
     "JACOBI_MAX_ITERS",
+    "cip_advect_cuda",
+    "cip_advect_plain",
+    "cip_advect_name",
 ]
 
 JACOBI_MAX_ITERS = 4  # iterations one jacobi_iteration_cuda call runs at most
@@ -295,3 +325,88 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
 
 
 jacobi_iteration_cuda.launches = 0  # kernel runs (two __global__ launches per iteration each)
+
+
+# --- C1: standalone CIP advection ---------------------------------------------------
+
+# the registered forms: ledger name → channel count
+_ADVECT_FORMS = {"cip_advect": 3, "cip_advect_self": 2}
+
+
+def cip_advect_name(chans: int, vel_is_f: bool) -> str:
+    """The byte ledger's name of one standalone advection call."""
+    base = "cip_advect_self" if vel_is_f else "cip_advect"
+    return base if _ADVECT_FORMS[base] == chans else f"{base}_c{chans}"
+
+
+def cip_advect_plain(f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8, dt: float, dx: float):
+    """``where(fluid8 != 0, cip_advect(f, fx, fy, vel[0], vel[1]), alt)`` per
+    output, composed from the eager ops in float32 (``ops/cip.py``) and
+    rounded once to f's dtype. Returns ``(f, fx, fy)`` advected."""
+    fluid = fluid8 != 0
+    vel32 = f32(vel)
+    cand = cip_advect(f32(f), f32(fx), f32(fy), vel32[0], vel32[1], dt, dx)
+    return tuple(torch.where(fluid, c, f32(a)).to(f.dtype)
+                 for c, a in zip(cand, (alt_f, alt_fx, alt_fy)))
+
+
+def cip_advect_cuda(f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8, dt: float, dx: float, *,
+                    out=None):
+    """Standalone CIP advection (the JAX package's ``cip_advect_pallas``):
+    ``where(fluid, cip_advect(f, fx, fy, vel[0], vel[1]), alt)`` per output.
+    f, fx, fy and the alternates are (C, X, Y), `vel` (2, X, Y); pass
+    ``vel is f`` for a velocity advecting itself (f's first two planes carry
+    it, read once). Every field float32 or bfloat16, one dtype; fluid8 (X, Y)
+    int8. Returns ``(f, fx, fy)`` advected, fresh tensors, or `out` (three
+    tensors shaped as f) when given; an output that aliases an input raises.
+
+    CPU tensors take :func:`cip_advect_plain`. CUDA tensors launch
+    ``csrc/cip_phases.cu`` ``f2d_cip_advect``; anything the kernel does not
+    take raises.
+    """
+    vel_is_f = vel is f
+    if f.dim() != 3 or (vel_is_f and f.shape[0] < 2):
+        msg = (f"cip_advect_cuda: f is (C, X, Y), C ≥ 2 when the velocity is f; "
+               f"got {tuple(f.shape)}")
+        raise ValueError(msg)
+    if f.dtype not in STORAGE_DTYPES:
+        msg = f"cip_advect_cuda: f is {f.dtype}; expected one of {STORAGE_DTYPES}"
+        raise TypeError(msg)
+    ins = (f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8)
+    if out is not None:
+        require_no_alias(out, ins, "cip_advect_cuda")
+    chans = f.shape[0]
+    if _launch.TRAFFIC_LOG is not None:
+        operands = ins if not vel_is_f else (f, fx, fy, alt_f, alt_fx, alt_fy, fluid8)
+        log_traffic(cip_advect_name(chans, vel_is_f), operand_bytes(*operands)
+                    + 3 * operand_bytes(f))
+    if on_cpu(f, "cip_advect_cuda"):
+        got = cip_advect_plain(*ins, dt, dx)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return tuple(out)
+    dev, sd = f.device, f.dtype
+    _, x_rows, y_cols = f.shape
+    field, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
+    ptrs = [require(t, name, field, sd, dev)
+            for t, name in ((f, "f"), (fx, "fx"), (fy, "fy"))]
+    v_ptr = ptrs[0] if vel_is_f else require(vel, "vel", vec, sd, dev)
+    ptrs += [v_ptr, v_ptr + x_rows * y_cols * f.element_size()]
+    ptrs += [require(t, name, field, sd, dev)
+             for t, name in ((alt_f, "alt_f"), (alt_fx, "alt_fx"), (alt_fy, "alt_fy"))]
+    ptrs.append(require(fluid8, "fluid8", plane, torch.int8, dev))
+    if out is None:
+        out = tuple(torch.empty_like(f) for _ in range(3))
+    else:
+        out = tuple(out)
+        for k, o in enumerate(out):
+            require(o, f"out[{k}]", field, sd, dev)
+    launch("f2d_cip_advect", dev, *ptrs, *(o.data_ptr() for o in out), x_rows, y_cols, chans,
+           int(sd == torch.bfloat16), dt, dx, dx**2, dx**3, recip32(dx), recip32(dx**2))
+    cip_advect_cuda.launches += 1
+    return out
+
+
+cip_advect_cuda.launches = 0

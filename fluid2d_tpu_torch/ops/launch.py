@@ -24,8 +24,8 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ["on_cpu", "require", "launch", "recip32", "TRAFFIC_LOG", "log_traffic",
-           "operand_bytes", "STORAGE_DTYPES", "entry"]
+__all__ = ["on_cpu", "require", "require_no_alias", "launch", "recip32", "TRAFFIC_LOG",
+           "log_traffic", "operand_bytes", "STORAGE_DTYPES", "entry"]
 
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' field storage types
 
@@ -92,6 +92,19 @@ def require(t: torch.Tensor, name: str, shape: tuple[int, ...], dtype: torch.dty
         msg = f"{name}: not contiguous"
         raise ValueError(msg)
     return t.data_ptr()
+
+
+def require_no_alias(outs, ins, wrapper: str) -> None:
+    """Raise if any output tensor shares a byte of storage with any input
+    (a kernel reads its inputs through read-only restrict pointers)."""
+    for o in outs:
+        o_lo = o.data_ptr()
+        o_hi = o_lo + o.numel() * o.element_size()
+        for t in ins:
+            t_lo = t.data_ptr()
+            if t.device == o.device and t_lo < o_hi and o_lo < t_lo + t.numel() * t.element_size():
+                msg = f"{wrapper}: an output aliases an input"
+                raise ValueError(msg)
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

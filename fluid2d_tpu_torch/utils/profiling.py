@@ -182,6 +182,10 @@ _KERNEL_MIXES: dict[str, dict] = {
     # dye, dye_alt, vel, bc_dye; inflow8, fluid8
     **{f"mac_dye_phase_{s}": {"f_in": (3, 3, 2, 3), "i8_in": (1, 1), "f_out": (3, 3)}
        for s in ("upwind", "kk")},
+    # the standalone CIP advection (C1): f, fx, fy, vel, alt_f, alt_fx, alt_fy;
+    # fluid8 — the dye form, and the velocity advecting itself (vel is f)
+    "cip_advect": {"f_in": (3, 3, 3, 2, 3, 3, 3), "i8_in": (1,), "f_out": (3, 3, 3)},
+    "cip_advect_self": {"f_in": (2,) * 6, "i8_in": (1,), "f_out": (2, 2, 2)},
 }
 
 

@@ -126,6 +126,9 @@ def test_module_prints_one_json_line_without_jax():
         "import runpy, sys\n"
         "sys.argv = ['bench', '--device', 'cpu', '--res', '32', '--steps', '4']\n"
         "runpy.run_module('fluid2d_tpu_torch.bench', run_name='__main__')\n"
+        "import fluid2d_tpu_torch.scripts.vpu_rate_sweep, fluid2d_tpu_torch.scripts.dma_geometry_sweep\n"
+        "import fluid2d_tpu_torch.scripts.dma_geometry_bench\n"
+        "import fluid2d_tpu_torch.scripts.dma_rowwin_1600_check\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid2d_tpu.')))\n"
         "print('imported:', bad, file=sys.stderr)\n"
         "assert not bad, bad\n"

@@ -21,6 +21,12 @@ float32 value once, where the plain versions do, and the float32 values
 are the plain versions' to the bit. The bf16 probes: the dtype-rate chains
 (C5a) within ``RATE_TOL_ULPS`` of their plain version, which a step more or
 fewer misses; the row copies (C5b) and the bf16 twin (C5c) bit-equal.
+
+The standalone CIP advection (C1) bit-equal at float32 and bf16; the FMA
+sweep (C5d) within ``fma_rate_error_bound`` of the float64 plain version,
+which one round short exceeds; the geometry twin (C5e/f) within
+1e-5·max(1, |ref|max); the row window (C5g) and the el-op toys (C6)
+bit-equal.
 """
 
 import numpy as np
@@ -368,3 +374,108 @@ def test_cuda_probe_measurements_are_positive(cuda_device):
                                                  device=cuda_device)
     assert rate > 0 and nbytes == profiling.mix_bytes("confinement", 128, 64)
     assert profiling.measure_fma_throughput(passes=64, iters=2, device=cuda_device) > 0
+
+
+# --- C1, the last probes (C5d–g) and the el-op toys (C6) ------------------------
+
+
+def _advect_args(res: int, dtype: torch.dtype, self_advect: bool, device):
+    """Seeded inputs of the standalone advection at scene 2's grid: the dye
+    form (C = 3, a separate velocity) or the velocity form (C = 2, vel is f)."""
+    sc = get_scene(2, res, device)
+    gen = torch.Generator(device="cpu").manual_seed(res + 7)
+    chans = 2 if self_advect else 3
+
+    def rnd(lead, scale):
+        return (scale * torch.randn((lead, *sc.shape), generator=gen)).to(dtype).to(device)
+
+    f, fx, fy = rnd(chans, 8.0 if self_advect else 0.5), rnd(chans, 0.1), rnd(chans, 0.1)
+    vel = f if self_advect else rnd(2, 8.0)
+    alts = [rnd(chans, 0.5) for _ in range(3)]
+    cfg = SimConfig.create(resolution=res)
+    return (f, fx, fy, vel, *alts, sc.fluid8, cfg.dt, cfg.dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [RES, RAGGED_RES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("self_advect", [False, True], ids=["dye_form", "velocity_form"])
+def test_cuda_cip_advect_matches_plain(cuda_device, self_advect, dtype, res):
+    """C1 against its plain version: bit-equal at both dtypes (the phases'
+    advection arithmetic, each output rounded once); an output aliasing an
+    input raises before any launch."""
+    from fluid2d_tpu_torch.ops.cuda_stencil import cip_advect_cuda, cip_advect_plain
+
+    args = _advect_args(res, dtype, self_advect, cuda_device)
+    before = cip_advect_cuda.launches
+    got = cip_advect_cuda(*args)
+    torch.cuda.synchronize()
+    assert cip_advect_cuda.launches == before + 1
+    _assert_bit_equal(got, cip_advect_plain(*args), "cip_advect")
+    with pytest.raises(ValueError, match="aliases"):
+        cip_advect_cuda(*args, out=(args[4], torch.empty_like(args[0]), torch.empty_like(args[0])))
+    assert cip_advect_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [64, 1024])
+@pytest.mark.parametrize("nchain", cuda_probes.FMA_SWEEP_CHAINS)
+def test_cuda_fma_sweep_within_bound(cuda_device, nchain, threads):
+    """C5d at the sweep's shallowest and deepest depth: within
+    fma_rate_error_bound of the float64 plain version, one round short beyond it."""
+    from fluid2d_tpu_torch.scripts.vpu_rate_sweep import check_chains
+
+    x = torch.rand((64, 1024), generator=torch.Generator().manual_seed(nchain)).to(cuda_device)
+    before = cuda_probes.fma_sweep_cuda.launches
+    for depth in (64, 1024):
+        res = check_chains(x, nchain, depth, threads)
+        assert res["max_abs_err"] <= res["bound"] < res["one_round_short_min_err"]
+    assert cuda_probes.fma_sweep_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("h", [0, 1, 8])
+def test_cuda_geometry_twin_matches_plain(cuda_device, h, channels):
+    """C5e/f on a ragged grid, with shared and int8 planes: within
+    1e-5·max(1, |ref|max) of the plain sum (the same additions in order)."""
+    x, y = 2 * RAGGED_RES, RAGGED_RES
+    gen = torch.Generator(device="cpu").manual_seed(h + channels)
+    lead = (channels,) if channels > 1 else ()
+    ops = cuda_probes.GeometryOperands(
+        [torch.randn((*lead, x, y), generator=gen).to(cuda_device) for _ in range(3)],
+        shared_in=[torch.randn((x, y), generator=gen).to(cuda_device)],
+        i8_in=[torch.randint(-3, 4, (x, y), generator=gen, dtype=torch.int8).to(cuda_device)],
+        n_out=2, h=h, block_rows=4)
+    before = cuda_probes.geometry_twin_cuda.launches
+    got = cuda_probes.geometry_twin_cuda(ops)
+    torch.cuda.synchronize()
+    assert cuda_probes.geometry_twin_cuda.launches == before + 1
+    _assert_close(got, cuda_probes.geometry_twin_plain(ops), "geometry_twin", 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3200, 1600), (256, 64)], ids=["3200x1600", "256x64"])
+def test_cuda_row_window_bit_equal(cuda_device, shape):
+    """C5g: the bulk-copied windows give 2·a to the bit, edge tiles included."""
+    x_rows, y_cols = shape
+    t = cuda_probes.row_window_tile(x_rows, y_cols)
+    a = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    got = cuda_probes.row_window_cuda(a, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, 2.0 * a)
+    assert torch.equal(got, cuda_probes.row_window_plain(a, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 128), (8, 128), (3200, 1600)])
+@pytest.mark.parametrize("op", cuda_probes.TOY_OPS)
+def test_cuda_toy_elementwise_bit_equal(cuda_device, op, shape):
+    """C6: each toy bit-equal to its plain version on the card (the division
+    as PyTorch's CUDA division by a Python scalar rounds it)."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    before = cuda_probes.toy_elementwise_cuda.launches
+    got = cuda_probes.toy_elementwise_cuda(x, op)
+    torch.cuda.synchronize()
+    assert cuda_probes.toy_elementwise_cuda.launches == before + 1
+    assert torch.equal(got, cuda_probes.toy_elementwise_plain(x, op))

@@ -152,6 +152,10 @@ def _variant_calls(dtype):
             v, p, va, *grads, scene, cfg.re, cfg.dt, cfg.dx)),
         ("cip_dye_phase", lambda: cuda_phases.cip_dye_phase_cuda(
             dye, dye, *dgrads, v, scene, cfg.re, cfg.dt, cfg.dx)),
+        ("cip_advect", lambda: cuda_stencil.cip_advect_cuda(
+            dye, *dgrads[:2], v, dye, *dgrads[2:], scene.fluid8, cfg.dt, cfg.dx)),
+        ("cip_advect_self", lambda: cuda_stencil.cip_advect_cuda(
+            v, *grads[:2], v, va, *grads[2:], scene.fluid8, cfg.dt, cfg.dx)),
     ]
     for s in ("upwind", "kk"):
         calls.append((f"mac_velocity_phase_{s}", lambda s=s: cuda_phases.mac_velocity_phase_cuda(

@@ -128,6 +128,9 @@ def test_package_never_imports_jax():
         "ft.FluidSimulator.create(bc_num=2, resolution=16, device='cpu', dtype='bfloat16').step(2)\n"
         "import fluid2d_tpu_torch.scripts.vpu_dtype_probe, fluid2d_tpu_torch.scripts.bf16_dma_probe\n"
         "import fluid2d_tpu_torch.scripts.bf16_geometry_probe\n"
+        "import fluid2d_tpu_torch.scripts.vpu_rate_sweep, fluid2d_tpu_torch.scripts.dma_geometry_sweep\n"
+        "import fluid2d_tpu_torch.scripts.dma_geometry_bench\n"
+        "import fluid2d_tpu_torch.scripts.dma_rowwin_1600_check\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid2d_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -27,7 +27,8 @@ Phases, each printed as JSON lines:
              a given velocity, and its velocity form, 2 channels, vel is f)
              against its plain PyTorch version at the res=1600 shapes on
              seeded random inputs: at float32 every output within
-             1e-5·max(1, |ref|max) (in fact 0.0); at bf16 every variant and
+             1e-5·max(1, |ref|max) (in fact 0.0), the fused CIP phases
+             (BIT_EQUAL_F32) bit-equal; at bf16 every variant and
              every pressure chain link (bf16→f32, f32→f32, f32→bf16,
              bf16→bf16) bit-equal, a NaN equal to any NaN; median ms of both
              over 20 calls (CUDA events). The registry check: the bytes each
@@ -58,7 +59,8 @@ Phases, each printed as JSON lines:
    profile — torch.profiler over two headline steps at float32 and at bf16:
              the CUDA kernels are the port's, the same at both dtypes but for
              their template arguments, plus the step counter's one-element
-             add; no copy or convert kernel.
+             add; no copy or convert kernel; exactly one fused kernel a CIP
+             phase call (PROFILE_COUNTS) and no standalone advection.
 5. run     — FluidSimulator.create(bc_num=2, resolution=1600, device="cuda")
              for cip, upwind, kk, cip_jacobi2 and cip_bf16: 2 warm-up steps,
              RUN_STEPS timed steps ending in a synchronize and a device→host
@@ -209,10 +211,16 @@ PROBES = ("copy_add1", "mix_twin", "mix_twin_bf16", "fma_rate", "dtype_rate", "r
 SWEEP_HEAD = {"chains": 8, "depth": 1024, "threads": 256}  # the fma_sweep row's timed case
 TOY_SHAPES = ((32, 128), (8, 128), (2 * RES, RES))
 # The port's kernels as torch.profiler names them (phase 4, profile).
-PORT_KERNELS = ("velocity_bc_kernel", "dye_bc_kernel", "non_advection_kernel",
-                "grad_update_kernel", "advect_kernel", "curl_kernel", "confine_kernel",
-                "pressure_bc_kernel", "sor_odd_kernel", "sor_even_kernel", "jacobi_sweep_kernel",
+PORT_KERNELS = ("cip_velocity_fused_kernel", "cip_dye_fused_kernel", "velocity_bc_kernel",
+                "dye_bc_kernel", "curl_kernel", "confine_kernel", "pressure_bc_kernel",
+                "sor_odd_kernel", "sor_even_kernel", "jacobi_sweep_kernel",
                 "mac_velocity_update_kernel", "mac_dye_update_kernel")
+# Device kernels of two headline steps that the profile phase counts exactly:
+# one fused launch a CIP phase call, and no standalone advection.
+PROFILE_COUNTS = {"cip_velocity_fused_kernel": 2, "cip_dye_fused_kernel": 2, "advect_kernel": 0}
+# Kernels held to their plain versions bit for bit at float32 too (the others
+# within KERNEL_TOL, in fact 0.0): the fused CIP phases.
+BIT_EQUAL_F32 = ("cip_velocity_phase", "cip_dye_phase")
 
 
 def _preset_path(n: int):
@@ -600,7 +608,7 @@ def check_kernels(cases, scene, dtype, table) -> None:
                 launch.TRAFFIC_LOG = None
             torch.cuda.synchronize()
             ref = plain()
-            if dtype == torch.float32:
+            if dtype == torch.float32 and name not in BIT_EQUAL_F32:
                 err, rel = max_errors(got, ref, name + variant, KERNEL_TOL)
                 tol = KERNEL_TOL
             else:
@@ -1080,6 +1088,10 @@ def check_profile(dev) -> None:
             raise AssertionError(f"profile[{dtype}]: kernels other than the port's and one add a "
                                  f"step: {sorted(set(other))}; copy/convert: {sorted(set(bad))}")
         seen[dtype] = {n: names.count(n) for n in set(port)}
+        fused = {k: sum(re.search(rf"\b{k}$", n) is not None for n in names)
+                 for k in PROFILE_COUNTS}
+        if fused != PROFILE_COUNTS:
+            raise AssertionError(f"profile[{dtype}]: {fused}, expected {PROFILE_COUNTS}")
         del sim
     if seen["float32"] != seen["bfloat16"]:
         raise AssertionError(f"profile: bf16 kernels {seen['bfloat16']} differ from float32 "

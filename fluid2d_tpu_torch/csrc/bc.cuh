@@ -1,5 +1,10 @@
-// Velocity and dye boundary conditions, shared by the CIP phases
-// (cip_phases.cu) and the MAC phases (mac_phases.cu).
+// Velocity and dye boundary conditions: the per-cell rules, shared by the
+// CIP phases (cip_phases.cu) and the MAC phases (mac_phases.cu), and the
+// MAC phases' BC kernels.
+//
+// The per-cell rules (velocity_bc_cell, dye_bc_cell) read their operands
+// through cell accessors (common.cuh), so the BC kernels below and the
+// fused CIP phase kernels evaluate the same lines.
 //
 // Each kernel writes the BC'd field out of place, one thread per cell and
 // blockIdx.z the channel: the velocity rules read the pre-BC field at
@@ -16,8 +21,34 @@
 namespace f2d {
 namespace {
 
-// Velocity BC by the packed vbc_code (fluid2d_tpu/ops/pallas_phases.py:91-117):
-// 1..4 ghost mirrors, 5 inflow, 6 outflow (x component only, fmaxf: NaN → 0.05).
+// Velocity BC of channel c at cell (i, j) by its vbc_code
+// (fluid2d_tpu/ops/pallas_phases.py:91-117): 1..4 ghost mirrors, 5 inflow,
+// 6 outflow (x component only, fmaxf: NaN → 0.05). v: the channel's pre-BC
+// field; inflow: the channel's scene constant, read only at inflow cells.
+template <typename A, typename B>
+__device__ __forceinline__ float velocity_bc_cell(const A& v, const B& inflow, int code, int c,
+                                                  int i, int j) {
+  switch (code) {
+    case 1: return -v(i - 2, j);
+    case 2: return -v(i + 2, j);
+    case 3: return -v(i, j - 2);
+    case 4: return -v(i, j + 2);
+    case 5: return inflow(i, j);
+    case 6:
+      if (c == 0) return fmaxf(v(i - 1, j), 0.05f);
+      return v(i, j);
+    default: return v(i, j);
+  }
+}
+
+// Dye BC: inflow cells take the scene's dye colours.
+template <typename A, typename B>
+__device__ __forceinline__ float dye_bc_cell(const A& dye, const B& bc_dye, int inflow, int i,
+                                             int j) {
+  return inflow != 0 ? bc_dye(i, j) : dye(i, j);
+}
+
+// Velocity BC by the packed vbc_code, both channels (blockIdx.z).
 template <typename S>
 __global__ void velocity_bc_kernel(const S* __restrict__ v, const int8_t* __restrict__ vbc_code,
                                    const S* __restrict__ bc_const, float* __restrict__ out,
@@ -26,23 +57,16 @@ __global__ void velocity_bc_kernel(const S* __restrict__ v, const int8_t* __rest
   if (!cell_of(g, i, j)) return;
   const int c = blockIdx.z;
   const long long k = (long long)i * g.Y + j;
-  const S* vc = v + c * g.plane();
-  float r = ld(vc, k);
-  switch (vbc_code[k]) {
-    case 1: r = -ld(vc, g.at(i - 2, j)); break;
-    case 2: r = -ld(vc, g.at(i + 2, j)); break;
-    case 3: r = -ld(vc, g.at(i, j - 2)); break;
-    case 4: r = -ld(vc, g.at(i, j + 2)); break;
-    case 5: r = ld(bc_const, c * g.plane() + k); break;
-    case 6:
-      if (c == 0) r = fmaxf(ld(vc, g.at(i - 1, j)), 0.05f);
-      break;
-    default: break;
-  }
+  // The cell's own value is loaded with its code, not after it.
+  const Plane<S> vc{v + c * g.plane(), g};
+  const float v0 = ld(vc.p, k);
+  const auto pre = [&](int a, int b) { return a == i && b == j ? v0 : vc(a, b); };
+  const float r = velocity_bc_cell(pre, Plane<S>{bc_const + c * g.plane(), g}, vbc_code[k], c, i,
+                                   j);
   st2(out, out_s, c * g.plane() + k, r);
 }
 
-// Dye BC: inflow cells take the scene's dye colours.
+// Dye BC, one channel a blockIdx.z.
 template <typename S>
 __global__ void dye_bc_kernel(const S* __restrict__ dye, const int8_t* __restrict__ inflow,
                               const S* __restrict__ bc_dye, float* __restrict__ out,
@@ -50,8 +74,9 @@ __global__ void dye_bc_kernel(const S* __restrict__ dye, const int8_t* __restric
   int i, j;
   if (!cell_of(g, i, j)) return;
   const long long k = (long long)i * g.Y + j;
-  const long long kc = blockIdx.z * g.plane() + k;
-  st2(out, out_s, kc, inflow[k] != 0 ? ld(bc_dye, kc) : ld(dye, kc));
+  const long long off = blockIdx.z * g.plane();
+  st2(out, out_s, off + k,
+      dye_bc_cell(Plane<S>{dye + off, g}, Plane<S>{bc_dye + off, g}, inflow[k], i, j));
 }
 
 }  // namespace

@@ -1,8 +1,8 @@
 // Cubic CIP advection of one cell's (value, ∂x, ∂y) triplet.
 //
 // The counterpart of fluid2d_tpu/ops/pallas_stencil.py:cip_advect_window_expr
-// and cip_velocity_ctx, shared by the velocity and the dye phase and the
-// standalone advection (f2d_cip_advect, cip_phases.cu). The
+// and cip_velocity_ctx, shared by the fused velocity and dye phase kernels
+// and the standalone advection (f2d_cip_advect, cip_phases.cu). The
 // arithmetic is the port's eager ops/cip.py:cip_advect (reference
 // fs/solver.py:282-332) operation for operation, rounded as PyTorch rounds
 // it on the card (common.cuh). Both upwind masks are
@@ -25,18 +25,15 @@ struct CipCell {
   float f, fx, fy;
 };
 
-// f, fx, fy: one channel's planes of type F (float for the phases'
-// non-advected values; the storage type for the standalone advection, widened
-// on load); u, w: the carrying velocity's planes, of storage type V.
-template <typename V, typename F>
-__device__ __forceinline__ CipCell cip_advect_cell(const F* __restrict__ f,
-                                                   const F* __restrict__ fx,
-                                                   const F* __restrict__ fy,
-                                                   const V* __restrict__ u,
-                                                   const V* __restrict__ w, const Grid& g,
-                                                   int i, int j, const CipConsts& c) {
-  const long long k = (long long)i * g.Y + j;
-  const float uc = ld(u, k), wc = ld(w, k);
+// f, fx, fy: one channel's value and gradients; u, w: the carrying
+// velocity's two planes. Each is a cell accessor (common.cuh): a Plane in
+// device memory (the standalone advection, and the dye phase's given
+// velocity) or a Window of stage values in shared memory (the phases).
+template <typename FA, typename GA, typename VA>
+__device__ __forceinline__ CipCell cip_advect_cell(const FA& f, const GA& fx, const GA& fy,
+                                                   const VA& u, const VA& w, int i, int j,
+                                                   const CipConsts& c) {
+  const float uc = u(i, j), wc = w(i, j);
   // NaN compares false: a NaN velocity takes the +1 branch, like sign().
   const bool up_x = !(uc < 0.0f);
   const bool up_y = !(wc < 0.0f);
@@ -44,11 +41,10 @@ __device__ __forceinline__ CipCell cip_advect_cell(const F* __restrict__ f,
   const float j_s = up_y ? 1.0f : -1.0f;
   const int iu = up_x ? i - 1 : i + 1;  // upwind row
   const int ju = up_y ? j - 1 : j + 1;  // upwind column
-  const long long k_im = g.at(iu, j), k_jm = g.at(i, ju), k_imjm = g.at(iu, ju);
 
-  const float f0 = ld(f, k), f_im = ld(f, k_im), f_jm = ld(f, k_jm), f_imjm = ld(f, k_imjm);
-  const float fx0 = ld(fx, k), fx_im = ld(fx, k_im), fx_jm = ld(fx, k_jm);
-  const float fy0 = ld(fy, k), fy_im = ld(fy, k_im), fy_jm = ld(fy, k_jm);
+  const float f0 = f(i, j), f_im = f(iu, j), f_jm = f(i, ju), f_imjm = f(iu, ju);
+  const float fx0 = fx(i, j), fx_im = fx(iu, j), fx_jm = fx(i, ju);
+  const float fy0 = fy(i, j), fy_im = fy(iu, j), fy_jm = fy(i, ju);
 
   const float tmp1 = f0 - f_jm - f_im + f_imjm;
   const float tmp2 = f_im - f0;
@@ -74,10 +70,10 @@ __device__ __forceinline__ CipCell cip_advect_cell(const F* __restrict__ f,
   const float Fx = (3.0f * a * X + 2.0f * cc * Y + 2.0f * e) * X + (d * Y + gg) * Y + fx0;
   const float Fy = (3.0f * b * Y + 2.0f * d * X + 2.0f * f_c) * Y + (cc * X + gg) * X + fy0;
 
-  const float dudx = 0.5f * (ld(u, g.at(i + 1, j)) - ld(u, g.at(i - 1, j))) * c.inv_dx;
-  const float dwdx = 0.5f * (ld(w, g.at(i + 1, j)) - ld(w, g.at(i - 1, j))) * c.inv_dx;
-  const float dudy = 0.5f * (ld(u, g.at(i, j + 1)) - ld(u, g.at(i, j - 1))) * c.inv_dx;
-  const float dwdy = 0.5f * (ld(w, g.at(i, j + 1)) - ld(w, g.at(i, j - 1))) * c.inv_dx;
+  const float dudx = 0.5f * (u(i + 1, j) - u(i - 1, j)) * c.inv_dx;
+  const float dwdx = 0.5f * (w(i + 1, j) - w(i - 1, j)) * c.inv_dx;
+  const float dudy = 0.5f * (u(i, j + 1) - u(i, j - 1)) * c.inv_dx;
+  const float dwdy = 0.5f * (w(i, j + 1) - w(i, j - 1)) * c.inv_dx;
   out.fx = Fx - c.dt * (Fx * dudx + Fy * dwdx) * 0.5f;
   out.fy = Fy - c.dt * (Fx * dudy + Fy * dwdy) * 0.5f;
   return out;

@@ -1,27 +1,52 @@
 // The CIP velocity phase, the CIP dye phase and the standalone CIP advection.
 //
-// Replace fluid2d_tpu/ops/pallas_phases.py:cip_velocity_phase_pallas (body
-// _cip_velocity_body) and cip_dye_phase_pallas (body _cip_dye_body). The
-// arithmetic is the port's eager path (the jnp branches of
+// The phases replace fluid2d_tpu/ops/pallas_phases.py:cip_velocity_phase_pallas
+// (body _cip_velocity_body) and cip_dye_phase_pallas (body _cip_dye_body).
+// The arithmetic is the port's eager path (the jnp branches of
 // fluid2d_tpu/models/cip.py) operation for operation, rounded as PyTorch
-// rounds it on the card (see common.cuh). Each phase cascades four stencils, and each
-// stage is its own launch with its result in device memory, so every
-// shifted read of a computed field clamps at the grid ends exactly as the
-// jnp path does (what the Pallas kernels rebuild with _reclamp):
-//   1. BC                 state      -> f_bc   (scratch)
-//   2. non-advection      f_bc       -> f_na   at not-wall cells, alt elsewhere
+// rounds it on the card (see common.cuh). Each phase cascades four stencils:
+//   1. BC                 state       -> f_bc
+//   2. non-advection      f_bc        -> f_na  at not-wall cells, alt elsewhere
 //   3. gradient update    f_na − f_bc -> g_na  at not-wall cells, alt elsewhere
 //   4. CIP advection      (f_na, g_na) by the carrying velocity at fluid
 //                         cells; f_bc and the pre-phase gradients elsewhere
 // The velocity phase carries by its own f_na; the dye phase by the limited
-// velocity it is given, and clamps the advected dye to [0, 1]. The BC
-// kernels are those of bc.cuh, shared with the MAC phases.
+// velocity it is given, and clamps the advected dye to [0, 1].
+//
+// One launch a phase. A block owns a TX × TY tile of output cells and runs
+// the whole cascade on it, each stage's values held as float in a shared
+// memory window one cell wider on every side than the next stage reads:
+// f_bc on the tile + 3, f_na + 2, g_na + 1, the advection on the tile. The
+// halo is recomputed by every block that needs it, as the Pallas cascade
+// recomputes it per tile; only the six outputs reach device memory. A
+// window entry at a cell outside the grid holds the stage's value at the
+// clamped cell (computed there, not "as if" at the outside index), which is
+// what a shifted read of a whole computed field gives in the jnp path and
+// what the Pallas kernels rebuild with _reclamp. So every stage value is the
+// eager path's float32 value, to the bit.
+//
+// Memory. A block first copies its operands into the windows: the state on
+// the window it first feeds (v, p and the dye on the tile + 3, the
+// gradients and the dye's carrying velocity on + 1) and one flag byte a cell
+// (the BC code, inflow, not-wall, fluid) from the scene's int8 planes. Every
+// window spans the same chunk-aligned columns, so a row is read in aligned
+// chunks of kV elements: at float one 16-byte cp.async a chunk, all of a
+// block's copies in flight at once; at bf16 an 8-byte load into registers;
+// the masks 4 bytes. The stages then run from shared memory; the
+// alternates, the inflow constants and the pre-phase gradients of non-fluid
+// cells are read from device memory at the few cells that take them. The
+// halo rows a neighbouring tile also reads come from L2. The per-cell
+// arithmetic of each stage is a function of cell accessors (common.cuh),
+// shared with the MAC BC kernels (bc.cuh) and the standalone advection
+// (cip_advect.cuh).
+//
+// Velocity: both channels in one block (channel 0 takes ∂x p, channel 1
+// ∂y p; each is carried by both f_na planes); the gradient update and the
+// advection one channel at a time through one pair of gradient windows, as
+// _cip_velocity_body does. Dye: one channel a blockIdx.z.
 //
 // Storage type S (common.cuh): the state's planes, the scene's constants and
-// the six outputs are S; f_bc and the three f_na planes, which later launches
-// read, are float. For S = float the f_na planes are the alternate outputs
-// themselves; for S = bf16 they are scratch, and stages 2 and 3 write the
-// rounded alternates beside them.
+// the six outputs are S; each output is rounded once, at its store.
 #include "bc.cuh"
 #include "cip_advect.cuh"
 #include "common.cuh"
@@ -30,149 +55,527 @@ using f2d::bf16;
 using f2d::CipConsts;
 using f2d::Grid;
 using f2d::ld;
+using f2d::Plane;
+using f2d::Window;
 
 namespace {
 
-// f_bc + (−∇p + ∇²f/Re)·dt (velocity, p given) or f_bc + (∇²f/Re)·dt
-// (dye, p null) at not-wall cells; the alternate buffer elsewhere.
-template <typename S>
-__global__ void non_advection_kernel(const float* __restrict__ f_bc, const S* __restrict__ p,
-                                     const S* __restrict__ alt,
-                                     const int8_t* __restrict__ not_wall,
-                                     float* __restrict__ out, S* __restrict__ out_s, Grid g,
-                                     CipConsts c) {
-  int i, j;
-  if (!f2d::cell_of(g, i, j)) return;
-  const int ch = blockIdx.z;
-  const long long k = (long long)i * g.Y + j;
-  const long long kc = ch * g.plane() + k;
-  if (not_wall[k] == 0) {
-    f2d::st2(out, out_s, kc, ld(alt, kc));
-    return;
-  }
-  const float* f = f_bc + ch * g.plane();
-  const float f0 = f[k];
-  const float lap = (f[g.at(i + 1, j)] - 2.0f * f0 + f[g.at(i - 1, j)]) * c.inv_dx2
-                    + (f[g.at(i, j + 1)] - 2.0f * f0 + f[g.at(i, j - 1)]) * c.inv_dx2;
-  if (p != nullptr) {
-    const float gp = ch == 0 ? 0.5f * (ld(p, g.at(i + 1, j)) - ld(p, g.at(i - 1, j))) * c.inv_dx
-                             : 0.5f * (ld(p, g.at(i, j + 1)) - ld(p, g.at(i, j - 1))) * c.inv_dx;
-    const float rhs = -gp + lap * c.inv_re;
-    f2d::st2(out, out_s, kc, f0 + rhs * c.dt);
+// Output tile of a fused phase block, rows × columns, both phases: the
+// fastest of the shapes timed on the card (PERF.md §6).
+constexpr int kTileX = 32, kTileY = 32;
+constexpr int kThreads = 256;  // threads of a fused phase block
+constexpr int kV = 4;  // elements of a chunk: one aligned load of a window row
+
+// A cell's flag byte in a fused kernel's window, gathered from the scene's
+// int8 planes: the velocity BC code (0..6) in the low bits, then these.
+constexpr unsigned kInflow = 1u << 3, kNotWall = 1u << 4, kFluid = 1u << 5, kCode = 7u;
+
+// fn(i, j) for every cell of the H × W region whose first cell is (i0, j0),
+// possibly outside the grid. Consecutive threads take consecutive cells of
+// a row.
+template <int H, int W, typename Fn>
+__device__ __forceinline__ void for_window(int i0, int j0, Fn fn) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < H * W; e += kThreads) fn(i0 + e / W, j0 + e % W);
+}
+
+template <int N>
+struct Bits;
+template <>
+struct Bits<4> {
+  using type = unsigned int;
+};
+template <>
+struct Bits<8> {
+  using type = uint2;
+};
+template <>
+struct Bits<16> {
+  using type = uint4;
+};
+
+// kV consecutive elements of type E: 16 bytes of float, 8 of bf16, 4 of int8.
+template <typename E>
+using Chunk = typename Bits<sizeof(E) * kV>::type;
+
+// The chunk of plane p at row `row` (in the grid) and columns c..c+kV−1:
+// one aligned load where it lies inside the row and `vec` holds, else
+// element by element at the clamped columns.
+template <typename E>
+__device__ __forceinline__ Chunk<E> load_chunk(const E* p, int row, int c, const Grid& g,
+                                               bool vec) {
+  const E* rp = p + (long long)row * g.Y;
+  Chunk<E> r;
+  if (vec && c >= 0 && c + kV <= g.Y) {
+    r = __ldg(reinterpret_cast<const Chunk<E>*>(rp + c));
   } else {
-    f2d::st2(out, out_s, kc, f0 + (lap * c.inv_re) * c.dt);
+    E* e = reinterpret_cast<E*>(&r);
+#pragma unroll
+    for (int t = 0; t < kV; ++t) e[t] = rp[g.clamp_j(c + t)];
   }
+  return r;
+}
+
+// Copy 16 bytes from device to shared memory without passing through
+// registers (cp.async); wait_fills() completes this thread's copies.
+__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void wait_fills() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Every fused window spans the columns tj − kV .. tj + TY + kV − 1 of its
+// tile (NC chunks a row, pitch NC·kV) and its own rows i0 .. i0 + H − 1.
+// fill() starts the copy of plane p (storage type S, clamped rows and
+// columns) into the float window s; consecutive threads take consecutive
+// chunks of a row, and the window is complete after wait_fills(). float:
+// each chunk inside its row is one cp.async, so every window of a block is
+// in flight at once; a chunk at the grid's column edge is loaded element by
+// element and stored. bf16: a thread loads its chunks into registers, all
+// in flight together, then stores them widened to float.
+template <int H, int NC, typename S>
+__device__ __forceinline__ void fill(float* s, const S* p, int i0, int c0, const Grid& g,
+                                     bool vec) {
+  constexpr int kN = (H * NC + kThreads - 1) / kThreads;
+  if constexpr (std::is_same_v<S, float>) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int it = threadIdx.x + n * kThreads;
+      if (it < H * NC) {
+        const int c = c0 + kV * (it % NC);
+        const float* rp = p + (long long)g.clamp_i(i0 + it / NC) * g.Y;
+        if (vec && c >= 0 && c + kV <= g.Y) {
+          copy16_async(s + kV * it, rp + c);
+        } else {
+#pragma unroll
+          for (int t = 0; t < kV; ++t) s[kV * it + t] = rp[g.clamp_j(c + t)];
+        }
+      }
+    }
+  } else {
+    Chunk<S> r[kN];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int it = threadIdx.x + n * kThreads;
+      if (it < H * NC) r[n] = load_chunk(p, g.clamp_i(i0 + it / NC), c0 + kV * (it % NC), g, vec);
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int it = threadIdx.x + n * kThreads;
+      if (it < H * NC) {
+        const S* e = reinterpret_cast<const S*>(&r[n]);
+        *reinterpret_cast<float4*>(s + kV * it) =
+            make_float4(ld(e, 0), ld(e, 1), ld(e, 2), ld(e, 3));
+      }
+    }
+  }
+}
+
+// The flag bytes of the window (the BC codes where `code` is given, the
+// inflow cells where `inflow` is), as fill() lays out a float window.
+template <int H, int NC>
+__device__ __forceinline__ void fill_flags(uint8_t* s, const int8_t* code, const int8_t* inflow,
+                                           const int8_t* not_wall, const int8_t* fluid, int i0,
+                                           int c0, const Grid& g, bool vec) {
+  constexpr int kN = (H * NC + kThreads - 1) / kThreads;
+  Chunk<int8_t> rc[kN], ri[kN], rn[kN], rf[kN];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int it = threadIdx.x + n * kThreads;
+    if (it < H * NC) {
+      const int row = g.clamp_i(i0 + it / NC), c = c0 + kV * (it % NC);
+      rc[n] = code != nullptr ? load_chunk(code, row, c, g, vec) : 0u;
+      ri[n] = inflow != nullptr ? load_chunk(inflow, row, c, g, vec) : 0u;
+      rn[n] = load_chunk(not_wall, row, c, g, vec);
+      rf[n] = load_chunk(fluid, row, c, g, vec);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int it = threadIdx.x + n * kThreads;
+    if (it < H * NC) {
+      unsigned packed = 0;
+#pragma unroll
+      for (int t = 0; t < kV; ++t) {
+        const unsigned sh = 8 * t;
+        const unsigned f = (((rc[n] >> sh) & 0xffu) & kCode) |
+                           (((ri[n] >> sh) & 0xffu) != 0 ? kInflow : 0u) |
+                           (((rn[n] >> sh) & 0xffu) != 0 ? kNotWall : 0u) |
+                           (((rf[n] >> sh) & 0xffu) != 0 ? kFluid : 0u);
+        packed |= f << sh;
+      }
+      *reinterpret_cast<unsigned*>(s + kV * it) = packed;
+    }
+  }
+}
+
+// ∇²f at (i, j), f0 = f(i, j), by the paired second differences
+// (ops/cip.py:diff2_sum).
+template <typename A>
+__device__ __forceinline__ float laplacian(const A& f, int i, int j, float f0,
+                                           const CipConsts& c) {
+  return (f(i + 1, j) - 2.0f * f0 + f(i - 1, j)) * c.inv_dx2
+         + (f(i, j + 1) - 2.0f * f0 + f(i, j - 1)) * c.inv_dx2;
+}
+
+// Non-advection step of velocity channel ch: f + (−∂p + ∇²f/Re)·dt
+// (ops/cip.py:non_advection_velocity), ∂x p for channel 0, ∂y p for 1.
+template <typename A, typename P>
+__device__ __forceinline__ float velocity_na_cell(const A& f, const P& p, int ch, int i, int j,
+                                                  const CipConsts& c) {
+  const float f0 = f(i, j);
+  const float lap = laplacian(f, i, j, f0, c);
+  const float gp = ch == 0 ? 0.5f * (p(i + 1, j) - p(i - 1, j)) * c.inv_dx
+                           : 0.5f * (p(i, j + 1) - p(i, j - 1)) * c.inv_dx;
+  const float rhs = -gp + lap * c.inv_re;
+  return f0 + rhs * c.dt;
+}
+
+// Non-advection step of a dye channel: f + (∇²f/Re)·dt
+// (ops/cip.py:non_advection_diffusion).
+template <typename A>
+__device__ __forceinline__ float diffusion_na_cell(const A& f, int i, int j, const CipConsts& c) {
+  const float f0 = f(i, j);
+  return f0 + (laplacian(f, i, j, f0, c) * c.inv_re) * c.dt;
 }
 
 // Gradient update from the non-advection change Δ = f_na − f_bc
-// (fs/solver.py:242-261) at not-wall cells; the alternate buffers elsewhere.
-template <typename S>
-__global__ void grad_update_kernel(const float* __restrict__ f_na,
-                                   const float* __restrict__ f_bc,
-                                   const S* __restrict__ gx, const S* __restrict__ gx_alt,
-                                   const S* __restrict__ gy, const S* __restrict__ gy_alt,
-                                   const int8_t* __restrict__ not_wall,
-                                   float* __restrict__ gx_out, float* __restrict__ gy_out,
-                                   S* __restrict__ gx_out_s, S* __restrict__ gy_out_s, Grid g,
-                                   float inv_two_dx) {
-  int i, j;
-  if (!f2d::cell_of(g, i, j)) return;
-  const long long off = blockIdx.z * g.plane();
-  const long long k = (long long)i * g.Y + j;
-  if (not_wall[k] == 0) {
-    f2d::st2(gx_out, gx_out_s, off + k, ld(gx_alt, off + k));
-    f2d::st2(gy_out, gy_out_s, off + k, ld(gy_alt, off + k));
-    return;
-  }
-  const float* fn = f_na + off;
-  const float* fb = f_bc + off;
-  const long long xp = g.at(i + 1, j), xm = g.at(i - 1, j);
-  const long long yp = g.at(i, j + 1), ym = g.at(i, j - 1);
-  f2d::st2(gx_out, gx_out_s, off + k,
-           ld(gx, off + k) + ((fn[xp] - fb[xp]) - (fn[xm] - fb[xm])) * inv_two_dx);
-  f2d::st2(gy_out, gy_out_s, off + k,
-           ld(gy, off + k) + ((fn[yp] - fb[yp]) - (fn[ym] - fb[ym])) * inv_two_dx);
+// (ops/cip.py:non_advection_grad, fs/solver.py:242-261): gx + (Δ(i+1, j) −
+// Δ(i−1, j))/(2dx), gy likewise along j.
+template <typename NA, typename BC>
+__device__ __forceinline__ float grad_update_x(float gx, const NA& fn, const BC& fb, int i, int j,
+                                               const CipConsts& c) {
+  return gx + ((fn(i + 1, j) - fb(i + 1, j)) - (fn(i - 1, j) - fb(i - 1, j))) * c.inv_two_dx;
 }
 
-// CIP advection at fluid cells, the kept values elsewhere; clamp01 applies
-// the dye's [0, 1] clamp (fminf/fmaxf: NaN → 0) to the value output. The
-// carrying velocity is of storage type V; the advected planes and the kept
-// value plane of type F: float in the phases (stage results), the storage
-// type in the standalone advection (f2d_cip_advect).
-template <typename S, typename V, typename F>
-__global__ void advect_kernel(const F* __restrict__ f_na, const F* __restrict__ gx_na,
-                              const F* __restrict__ gy_na, const V* __restrict__ u,
-                              const V* __restrict__ w, const int8_t* __restrict__ fluid,
-                              const F* __restrict__ keep_f, const S* __restrict__ keep_gx,
+template <typename NA, typename BC>
+__device__ __forceinline__ float grad_update_y(float gy, const NA& fn, const BC& fb, int i, int j,
+                                               const CipConsts& c) {
+  return gy + ((fn(i, j + 1) - fb(i, j + 1)) - (fn(i, j - 1) - fb(i, j - 1))) * c.inv_two_dx;
+}
+
+// The windows of a TX × TY tile: NC chunks a row (pitch P); H3, H2, H1 rows
+// for a halo of 3, 2, 1 cells.
+template <int TX, int TY>
+struct Tile {
+  static_assert(TY % kV == 0, "a tile's width is a whole number of chunks");
+  static constexpr int NC = TY / kV + 2, P = NC * kV;
+  static constexpr int H3 = TX + 6, H2 = TX + 4, H1 = TX + 2;
+};
+
+template <int TX, int TY>
+struct VelocityTile : Tile<TX, TY> {
+  using B = Tile<TX, TY>;
+  // v_bc ×2 and p on the tile + 3, v_na ×2 on + 2, one channel's gradients
+  // on + 1, as float; the flags on + 3.
+  static constexpr int kFloats = (3 * B::H3 + 2 * B::H2 + 2 * B::H1) * B::P;
+  static constexpr int kBytes = 4 * kFloats + B::H3 * B::P;
+};
+
+template <int TX, int TY>
+struct DyeTile : Tile<TX, TY> {
+  using B = Tile<TX, TY>;
+  // d_bc on the tile + 3, d_na on + 2, the gradients and the carrying
+  // velocity on + 1, as float; the flags on + 3.
+  static constexpr int kFloats = (B::H3 + B::H2 + 4 * B::H1) * B::P;
+  static constexpr int kBytes = 4 * kFloats + B::H3 * B::P;
+};
+
+// The velocity phase on one TX × TY tile, both channels. Fields (2, X, Y)
+// but p (X, Y); the masks (X, Y) int8. vec: every plane allows aligned
+// chunk loads.
+template <typename S, int TX, int TY>
+__global__ void __launch_bounds__(kThreads) cip_velocity_fused_kernel(
+    const S* __restrict__ v, const S* __restrict__ p, const S* __restrict__ v_alt,
+    const S* __restrict__ vx, const S* __restrict__ vx_alt, const S* __restrict__ vy,
+    const S* __restrict__ vy_alt, const S* __restrict__ bc_const,
+    const int8_t* __restrict__ vbc_code, const int8_t* __restrict__ not_wall8,
+    const int8_t* __restrict__ fluid8, S* __restrict__ v_out, S* __restrict__ vx_out,
+    S* __restrict__ vy_out, S* __restrict__ v_na, S* __restrict__ vx_na, S* __restrict__ vy_na,
+    Grid g, CipConsts c, int vec) {
+  using T = VelocityTile<TX, TY>;
+  constexpr int NC = T::NC, P = T::P, H3 = T::H3, H2 = T::H2, H1 = T::H1;
+  extern __shared__ __align__(16) float smem[];
+  float* const s_bc0 = smem;
+  float* const s_bc1 = s_bc0 + H3 * P;
+  float* const s_p = s_bc1 + H3 * P;
+  float* const s_na0 = s_p + H3 * P;
+  float* const s_na1 = s_na0 + H2 * P;
+  float* const s_gx = s_na1 + H2 * P;
+  float* const s_gy = s_gx + H1 * P;
+  uint8_t* const s_fl = reinterpret_cast<uint8_t*>(s_gy + H1 * P);
+  const int ti = blockIdx.y * TX, tj = blockIdx.x * TY, c0 = tj - kV;
+  const long long plane = g.plane();
+  const Window<P> bc0{s_bc0, ti - 3, c0}, bc1{s_bc1, ti - 3, c0}, pw{s_p, ti - 3, c0};
+  const Window<P> na0{s_na0, ti - 2, c0}, na1{s_na1, ti - 2, c0};
+  const Window<P> gx{s_gx, ti - 1, c0}, gy{s_gy, ti - 1, c0};
+  const Window<P, uint8_t> fl{s_fl, ti - 3, c0};
+
+  // 0. The tile's operands from device memory: the flags, v and p on the
+  //    tile + 3, channel 0's gradients on + 1.
+  fill<H3, NC>(s_bc0, v, ti - 3, c0, g, vec);
+  fill<H3, NC>(s_bc1, v + plane, ti - 3, c0, g, vec);
+  fill<H3, NC>(s_p, p, ti - 3, c0, g, vec);
+  fill<H1, NC>(s_gx, vx, ti - 1, c0, g, vec);
+  fill<H1, NC>(s_gy, vy, ti - 1, c0, g, vec);
+  fill_flags<H3, NC>(s_fl, vbc_code, nullptr, not_wall8, fluid8, ti - 3, c0, g, vec);
+  wait_fills();
+
+  // 1. Velocity BC of both channels on the tile + 3, in place: an entry
+  //    reads its own value and, at the few ghost, inflow and outflow cells,
+  //    device memory.
+  const Plane<S> v0{v, g}, v1{v + plane, g}, in0{bc_const, g}, in1{bc_const + plane, g};
+  for_window<H3, TY + 6>(ti - 3, tj - 3, [&](int i0, int j0) {
+    const int e = bc0.idx(i0, j0), i = g.clamp_i(i0), j = g.clamp_j(j0);
+    const int code = fl(i, j) & kCode;
+    const auto pre0 = [&](int a, int b) { return a == i && b == j ? s_bc0[e] : v0(a, b); };
+    const auto pre1 = [&](int a, int b) { return a == i && b == j ? s_bc1[e] : v1(a, b); };
+    s_bc0[e] = f2d::velocity_bc_cell(pre0, in0, code, 0, i, j);
+    s_bc1[e] = f2d::velocity_bc_cell(pre1, in1, code, 1, i, j);
+  });
+  __syncthreads();
+
+  // 2. Non-advection of both channels on the tile + 2 at not-wall cells,
+  //    the alternate elsewhere.
+  for_window<H2, TY + 4>(ti - 2, tj - 2, [&](int i0, int j0) {
+    const int e = na0.idx(i0, j0), i = g.clamp_i(i0), j = g.clamp_j(j0);
+    if ((fl(i, j) & kNotWall) != 0) {
+      s_na0[e] = velocity_na_cell(bc0, pw, 0, i, j, c);
+      s_na1[e] = velocity_na_cell(bc1, pw, 1, i, j, c);
+    } else {
+      const long long k = (long long)i * g.Y + j;
+      s_na0[e] = f2d::ldg(v_alt, k);
+      s_na1[e] = f2d::ldg(v_alt, plane + k);
+    }
+  });
+  __syncthreads();
+
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    const Window<P>& bc = ch == 0 ? bc0 : bc1;
+    const Window<P>& na = ch == 0 ? na0 : na1;
+    if (ch == 1) {
+      fill<H1, NC>(s_gx, vx + plane, ti - 1, c0, g, vec);
+      fill<H1, NC>(s_gy, vy + plane, ti - 1, c0, g, vec);
+      wait_fills();
+    }
+    // 3. Gradient update of this channel on the tile + 1, in place.
+    for_window<H1, TY + 2>(ti - 1, tj - 1, [&](int i0, int j0) {
+      const int e = gx.idx(i0, j0), i = g.clamp_i(i0), j = g.clamp_j(j0);
+      if ((fl(i, j) & kNotWall) != 0) {
+        s_gx[e] = grad_update_x(s_gx[e], na, bc, i, j, c);
+        s_gy[e] = grad_update_y(s_gy[e], na, bc, i, j, c);
+      } else {
+        const long long kc = ch * plane + (long long)i * g.Y + j;
+        s_gx[e] = f2d::ldg(vx_alt, kc);
+        s_gy[e] = f2d::ldg(vy_alt, kc);
+      }
+    });
+    __syncthreads();
+
+    // 4. Advection of this channel on the tile, carried by both v_na
+    //    planes; the pre-phase gradients re-read at the few non-fluid
+    //    cells; the six stores.
+    for_window<TX, TY>(ti, tj, [&](int i, int j) {
+      if (i >= g.X || j >= g.Y) return;
+      const long long kc = ch * plane + (long long)i * g.Y + j;
+      f2d::CipCell r;
+      if ((fl(i, j) & kFluid) != 0) {
+        r = f2d::cip_advect_cell(na, gx, gy, na0, na1, i, j, c);
+      } else {
+        r.f = bc(i, j);
+        r.fx = f2d::ldg(vx, kc);
+        r.fy = f2d::ldg(vy, kc);
+      }
+      f2d::st(v_out, kc, r.f);
+      f2d::st(vx_out, kc, r.fx);
+      f2d::st(vy_out, kc, r.fy);
+      f2d::st(v_na, kc, na(i, j));
+      f2d::st(vx_na, kc, gx(i, j));
+      f2d::st(vy_na, kc, gy(i, j));
+    });
+    if (ch == 0) __syncthreads();  // channel 1's gradients reuse s_gx, s_gy
+  }
+}
+
+// The dye phase on one TX × TY tile of channel blockIdx.z. Dye fields
+// (C, X, Y), vel (2, X, Y), the masks (X, Y) int8; vec as above.
+template <typename S, int TX, int TY>
+__global__ void __launch_bounds__(kThreads) cip_dye_fused_kernel(
+    const S* __restrict__ dye, const S* __restrict__ dye_alt, const S* __restrict__ dyex,
+    const S* __restrict__ dyex_alt, const S* __restrict__ dyey, const S* __restrict__ dyey_alt,
+    const S* __restrict__ vel, const S* __restrict__ bc_dye, const int8_t* __restrict__ inflow8,
+    const int8_t* __restrict__ not_wall8, const int8_t* __restrict__ fluid8,
+    S* __restrict__ d_out, S* __restrict__ dx_out, S* __restrict__ dy_out,
+    S* __restrict__ d_na, S* __restrict__ dx_na, S* __restrict__ dy_na, Grid g, CipConsts c,
+    int vec) {
+  using T = DyeTile<TX, TY>;
+  constexpr int NC = T::NC, P = T::P, H3 = T::H3, H2 = T::H2, H1 = T::H1;
+  extern __shared__ __align__(16) float smem[];
+  float* const s_bc = smem;
+  float* const s_na = s_bc + H3 * P;
+  float* const s_gx = s_na + H2 * P;
+  float* const s_gy = s_gx + H1 * P;
+  float* const s_u = s_gy + H1 * P;
+  float* const s_w = s_u + H1 * P;
+  uint8_t* const s_fl = reinterpret_cast<uint8_t*>(s_w + H1 * P);
+  const int ti = blockIdx.y * TX, tj = blockIdx.x * TY, c0 = tj - kV;
+  const long long off = blockIdx.z * g.plane();
+  const Window<P> bc{s_bc, ti - 3, c0}, na{s_na, ti - 2, c0};
+  const Window<P> gx{s_gx, ti - 1, c0}, gy{s_gy, ti - 1, c0};
+  const Window<P> u{s_u, ti - 1, c0}, w{s_w, ti - 1, c0};
+  const Window<P, uint8_t> fl{s_fl, ti - 3, c0};
+
+  // 0. The tile's operands from device memory: the flags and the dye on the
+  //    tile + 3, its gradients and the carrying velocity on + 1.
+  fill<H3, NC>(s_bc, dye + off, ti - 3, c0, g, vec);
+  fill<H1, NC>(s_gx, dyex + off, ti - 1, c0, g, vec);
+  fill<H1, NC>(s_gy, dyey + off, ti - 1, c0, g, vec);
+  fill<H1, NC>(s_u, vel, ti - 1, c0, g, vec);
+  fill<H1, NC>(s_w, vel + g.plane(), ti - 1, c0, g, vec);
+  fill_flags<H3, NC>(s_fl, nullptr, inflow8, not_wall8, fluid8, ti - 3, c0, g, vec);
+  wait_fills();
+
+  // 1. Dye BC on the tile + 3, in place.
+  const Plane<S> colours{bc_dye + off, g};
+  for_window<H3, TY + 6>(ti - 3, tj - 3, [&](int i0, int j0) {
+    const int e = bc.idx(i0, j0), i = g.clamp_i(i0), j = g.clamp_j(j0);
+    const auto pre = [&](int, int) { return s_bc[e]; };
+    s_bc[e] = f2d::dye_bc_cell(pre, colours, fl(i, j) & kInflow, i, j);
+  });
+  __syncthreads();
+
+  // 2. Diffusion on the tile + 2 at not-wall cells, the alternate elsewhere.
+  for_window<H2, TY + 4>(ti - 2, tj - 2, [&](int i0, int j0) {
+    const int i = g.clamp_i(i0), j = g.clamp_j(j0);
+    s_na[na.idx(i0, j0)] = (fl(i, j) & kNotWall) != 0
+                               ? diffusion_na_cell(bc, i, j, c)
+                               : f2d::ldg(dye_alt, off + (long long)i * g.Y + j);
+  });
+  __syncthreads();
+
+  // 3. Gradient update on the tile + 1, in place.
+  for_window<H1, TY + 2>(ti - 1, tj - 1, [&](int i0, int j0) {
+    const int e = gx.idx(i0, j0), i = g.clamp_i(i0), j = g.clamp_j(j0);
+    if ((fl(i, j) & kNotWall) != 0) {
+      s_gx[e] = grad_update_x(s_gx[e], na, bc, i, j, c);
+      s_gy[e] = grad_update_y(s_gy[e], na, bc, i, j, c);
+    } else {
+      const long long kc = off + (long long)i * g.Y + j;
+      s_gx[e] = f2d::ldg(dyex_alt, kc);
+      s_gy[e] = f2d::ldg(dyey_alt, kc);
+    }
+  });
+  __syncthreads();
+
+  // 4. Advection on the tile by the given velocity, the [0, 1] clamp
+  //    (fminf/fmaxf: NaN → 0) on every cell's value; the pre-phase
+  //    gradients re-read at the few non-fluid cells; the six stores.
+  for_window<TX, TY>(ti, tj, [&](int i, int j) {
+    if (i >= g.X || j >= g.Y) return;
+    const long long kc = off + (long long)i * g.Y + j;
+    f2d::CipCell r;
+    if ((fl(i, j) & kFluid) != 0) {
+      r = f2d::cip_advect_cell(na, gx, gy, u, w, i, j, c);
+    } else {
+      r.f = bc(i, j);
+      r.fx = f2d::ldg(dyex, kc);
+      r.fy = f2d::ldg(dyey, kc);
+    }
+    f2d::st(d_out, kc, fminf(fmaxf(r.f, 0.0f), 1.0f));
+    f2d::st(dx_out, kc, r.fx);
+    f2d::st(dy_out, kc, r.fy);
+    f2d::st(d_na, kc, na(i, j));
+    f2d::st(dx_na, kc, gx(i, j));
+    f2d::st(dy_na, kc, gy(i, j));
+  });
+}
+
+// Standalone CIP advection at fluid cells, the kept values elsewhere; every
+// plane of storage type S, one thread per cell, the channel on blockIdx.z.
+template <typename S>
+__global__ void advect_kernel(const S* __restrict__ f, const S* __restrict__ fx,
+                              const S* __restrict__ fy, const S* __restrict__ u,
+                              const S* __restrict__ w, const int8_t* __restrict__ fluid,
+                              const S* __restrict__ keep_f, const S* __restrict__ keep_gx,
                               const S* __restrict__ keep_gy, S* __restrict__ out_f,
                               S* __restrict__ out_gx, S* __restrict__ out_gy, Grid g,
-                              CipConsts consts, int clamp01) {
+                              CipConsts consts) {
   int i, j;
   if (!f2d::cell_of(g, i, j)) return;
   const long long off = blockIdx.z * g.plane();
   const long long k = (long long)i * g.Y + j;
   f2d::CipCell r;
   if (fluid[k] != 0) {
-    r = f2d::cip_advect_cell(f_na + off, gx_na + off, gy_na + off, u, w, g, i, j, consts);
+    r = f2d::cip_advect_cell(Plane<S>{f + off, g}, Plane<S>{fx + off, g}, Plane<S>{fy + off, g},
+                             Plane<S>{u, g}, Plane<S>{w, g}, i, j, consts);
   } else {
     r.f = ld(keep_f, off + k);
     r.fx = ld(keep_gx, off + k);
     r.fy = ld(keep_gy, off + k);
   }
-  f2d::st(out_f, off + k, clamp01 ? fminf(fmaxf(r.f, 0.0f), 1.0f) : r.f);
+  f2d::st(out_f, off + k, r.f);
   f2d::st(out_gx, off + k, r.fx);
   f2d::st(out_gy, off + k, r.fy);
 }
 
-// The velocity phase. v_na32, vx_na32, vy_na32: the float f_na planes
-// (for S = float, v_na, vx_na, vy_na themselves).
+dim3 tile_blocks(const Grid& g, int tx, int ty, int channels) {
+  return dim3((g.Y + ty - 1) / ty, (g.X + tx - 1) / tx, channels);
+}
+
+// Allow Kernel `bytes` of dynamic shared memory (above the default 48 KB),
+// once a process.
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return err;
+}
+
+// Whether every plane allows aligned chunk loads: rows of a whole number of
+// chunks, and 16-byte-aligned planes.
+bool chunk_loads(const Grid& g, const void* const* planes, int n) {
+  bool ok = g.Y % kV == 0;
+  for (int k = 0; k < n; ++k) ok = ok && reinterpret_cast<uintptr_t>(planes[k]) % 16 == 0;
+  return ok;
+}
+
 template <typename S>
-int cip_velocity_phase(const S* v, const S* p, const S* v_alt, const S* vx, const S* vx_alt,
-                       const S* vy, const S* vy_alt, const S* bc_const, const int8_t* vbc_code,
-                       const int8_t* not_wall8, const int8_t* fluid8, float* v_bc, S* v_out,
-                       S* vx_out, S* vy_out, S* v_na, S* vx_na, S* vy_na, float* v_na32,
-                       float* vx_na32, float* vy_na32, Grid g, CipConsts c, float inv_two_dx,
+int cip_velocity_phase(const void* const* in, const int8_t* vbc_code, const int8_t* not_wall8,
+                       const int8_t* fluid8, void* const* out, Grid g, CipConsts c,
                        cudaStream_t s) {
-  const long long plane = g.plane();
-  const dim3 blocks = f2d::launch_blocks(g.X, g.Y, 2), threads = f2d::launch_threads();
-  f2d::velocity_bc_kernel<S><<<blocks, threads, 0, s>>>(v, vbc_code, bc_const, v_bc, nullptr, g);
-  F2D_CHECK_LAUNCH();
-  non_advection_kernel<S><<<blocks, threads, 0, s>>>(v_bc, p, v_alt, not_wall8, v_na32, v_na, g,
-                                                     c);
-  F2D_CHECK_LAUNCH();
-  grad_update_kernel<S><<<blocks, threads, 0, s>>>(v_na32, v_bc, vx, vx_alt, vy, vy_alt,
-                                                   not_wall8, vx_na32, vy_na32, vx_na, vy_na, g,
-                                                   inv_two_dx);
-  F2D_CHECK_LAUNCH();
-  advect_kernel<S, float, float><<<blocks, threads, 0, s>>>(v_na32, vx_na32, vy_na32, v_na32,
-                                                            v_na32 + plane, fluid8, v_bc, vx, vy,
-                                                            v_out, vx_out, vy_out, g, c, 0);
+  constexpr int bytes = VelocityTile<kTileX, kTileY>::kBytes;
+  constexpr auto kernel = cip_velocity_fused_kernel<S, kTileX, kTileY>;
+  if (const cudaError_t err = allow_smem<kernel>(bytes); err != cudaSuccess) return (int)err;
+  auto i = [in](int k) { return static_cast<const S*>(in[k]); };
+  auto o = [out](int k) { return static_cast<S*>(out[k]); };
+  const void* planes[] = {in[0], in[1], in[2], in[3], in[4],  in[5],
+                          in[6], in[7], vbc_code, not_wall8, fluid8};
+  kernel<<<tile_blocks(g, kTileX, kTileY, 1), kThreads, bytes, s>>>(
+      i(0), i(1), i(2), i(3), i(4), i(5), i(6), i(7), vbc_code, not_wall8, fluid8, o(0), o(1),
+      o(2), o(3), o(4), o(5), g, c, chunk_loads(g, planes, 11));
   F2D_CHECK_LAUNCH();
   return 0;
 }
 
-// The dye phase; d_na32, dx_na32, dy_na32 as above.
 template <typename S>
-int cip_dye_phase(const S* dye, const S* dye_alt, const S* dyex, const S* dyex_alt,
-                  const S* dyey, const S* dyey_alt, const S* vel, const S* bc_dye,
-                  const int8_t* inflow8, const int8_t* not_wall8, const int8_t* fluid8,
-                  float* d_bc, S* d_out, S* dx_out, S* dy_out, S* d_na, S* dx_na, S* dy_na,
-                  float* d_na32, float* dx_na32, float* dy_na32, Grid g, CipConsts c,
-                  float inv_two_dx, cudaStream_t s) {
-  const long long plane = g.plane();
-  const dim3 blocks = f2d::launch_blocks(g.X, g.Y, 3), threads = f2d::launch_threads();
-  f2d::dye_bc_kernel<S><<<blocks, threads, 0, s>>>(dye, inflow8, bc_dye, d_bc, nullptr, g);
-  F2D_CHECK_LAUNCH();
-  non_advection_kernel<S><<<blocks, threads, 0, s>>>(d_bc, nullptr, dye_alt, not_wall8, d_na32,
-                                                     d_na, g, c);
-  F2D_CHECK_LAUNCH();
-  grad_update_kernel<S><<<blocks, threads, 0, s>>>(d_na32, d_bc, dyex, dyex_alt, dyey, dyey_alt,
-                                                   not_wall8, dx_na32, dy_na32, dx_na, dy_na, g,
-                                                   inv_two_dx);
-  F2D_CHECK_LAUNCH();
-  advect_kernel<S, S, float><<<blocks, threads, 0, s>>>(d_na32, dx_na32, dy_na32, vel,
-                                                        vel + plane, fluid8, d_bc, dyex, dyey,
-                                                        d_out, dx_out, dy_out, g, c, 1);
+int cip_dye_phase(const void* const* in, const int8_t* inflow8, const int8_t* not_wall8,
+                  const int8_t* fluid8, void* const* out, Grid g, int C, CipConsts c,
+                  cudaStream_t s) {
+  constexpr int bytes = DyeTile<kTileX, kTileY>::kBytes;
+  constexpr auto kernel = cip_dye_fused_kernel<S, kTileX, kTileY>;
+  if (const cudaError_t err = allow_smem<kernel>(bytes); err != cudaSuccess) return (int)err;
+  auto i = [in](int k) { return static_cast<const S*>(in[k]); };
+  auto o = [out](int k) { return static_cast<S*>(out[k]); };
+  const void* planes[] = {in[0], in[1], in[2], in[3], in[4],  in[5],
+                          in[6], in[7], inflow8, not_wall8, fluid8};
+  kernel<<<tile_blocks(g, kTileX, kTileY, C), kThreads, bytes, s>>>(
+      i(0), i(1), i(2), i(3), i(4), i(5), i(6), i(7), inflow8, not_wall8, fluid8, o(0), o(1),
+      o(2), o(3), o(4), o(5), g, c, chunk_loads(g, planes, 11));
   F2D_CHECK_LAUNCH();
   return 0;
 }
@@ -186,9 +589,9 @@ int cip_advect(const void* f, const void* fx, const void* fy, const void* u, con
                cudaStream_t s) {
   auto in = [](const void* p) { return static_cast<const S*>(p); };
   auto out = [](void* p) { return static_cast<S*>(p); };
-  advect_kernel<S, S, S><<<f2d::launch_blocks(g.X, g.Y, C), f2d::launch_threads(), 0, s>>>(
+  advect_kernel<S><<<f2d::launch_blocks(g.X, g.Y, C), f2d::launch_threads(), 0, s>>>(
       in(f), in(fx), in(fy), in(u), in(w), fluid8, in(alt_f), in(alt_fx), in(alt_fy),
-      out(out_f), out(out_fx), out(out_fy), g, c, 0);
+      out(out_f), out(out_fx), out(out_fy), g, c);
   F2D_CHECK_LAUNCH();
   return 0;
 }
@@ -219,64 +622,44 @@ extern "C" int f2d_cip_advect(const void* f, const void* fx, const void* fy, con
                            Grid{X, Y}, C, c, s);
 }
 
-// All fields (2, X, Y) except p (X, Y); v_bc is scratch. Outputs: the
-// advected (v, vx, vy) and the new alternates (v_na, vx_na, vy_na). The
-// grid constants are those of CipConsts, in its order.
+// The velocity phase. v, v_alt, vx, vx_alt, vy, vy_alt, bc_const and the
+// six outputs (2, X, Y); p (X, Y); the masks (X, Y) int8. Outputs: the
+// advected (v, vx, vy) and the new alternates (v_na, vx_na, vy_na). Every
+// field is stored as bf16 when bf16_storage != 0, else as float. The grid
+// constants are those of CipConsts, in its order.
 extern "C" int f2d_cip_velocity_phase(
-    const float* v, const float* p, const float* v_alt, const float* vx, const float* vx_alt,
-    const float* vy, const float* vy_alt, const float* bc_const, const int8_t* vbc_code,
-    const int8_t* not_wall8, const int8_t* fluid8, float* v_bc, float* v_out, float* vx_out,
-    float* vy_out, float* v_na, float* vx_na, float* vy_na, int X, int Y, float dt, float dx,
+    const void* v, const void* p, const void* v_alt, const void* vx, const void* vx_alt,
+    const void* vy, const void* vy_alt, const void* bc_const, const int8_t* vbc_code,
+    const int8_t* not_wall8, const int8_t* fluid8, void* v_out, void* vx_out, void* vy_out,
+    void* v_na, void* vx_na, void* vy_na, int X, int Y, int bf16_storage, float dt, float dx,
     float dx2, float dx3, float inv_dx, float inv_dx2, float inv_re, float inv_two_dx,
     void* stream) {
-  return cip_velocity_phase<float>(
-      v, p, v_alt, vx, vx_alt, vy, vy_alt, bc_const, vbc_code, not_wall8, fluid8, v_bc, v_out,
-      vx_out, vy_out, v_na, vx_na, vy_na, v_na, vx_na, vy_na, Grid{X, Y},
-      CipConsts{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx}, inv_two_dx,
-      static_cast<cudaStream_t>(stream));
+  const void* in[] = {v, p, v_alt, vx, vx_alt, vy, vy_alt, bc_const};
+  void* out[] = {v_out, vx_out, vy_out, v_na, vx_na, vy_na};
+  const CipConsts c{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_storage) {
+    return cip_velocity_phase<bf16>(in, vbc_code, not_wall8, fluid8, out, Grid{X, Y}, c, s);
+  }
+  return cip_velocity_phase<float>(in, vbc_code, not_wall8, fluid8, out, Grid{X, Y}, c, s);
 }
 
-// The same with bf16 fields; v_na32, vx_na32, vy_na32: (2, X, Y) float scratch.
-extern "C" int f2d_cip_velocity_phase_bf16(
-    const bf16* v, const bf16* p, const bf16* v_alt, const bf16* vx, const bf16* vx_alt,
-    const bf16* vy, const bf16* vy_alt, const bf16* bc_const, const int8_t* vbc_code,
-    const int8_t* not_wall8, const int8_t* fluid8, float* v_bc, bf16* v_out, bf16* vx_out,
-    bf16* vy_out, bf16* v_na, bf16* vx_na, bf16* vy_na, float* v_na32, float* vx_na32,
-    float* vy_na32, int X, int Y, float dt, float dx, float dx2, float dx3, float inv_dx,
-    float inv_dx2, float inv_re, float inv_two_dx, void* stream) {
-  return cip_velocity_phase<bf16>(
-      v, p, v_alt, vx, vx_alt, vy, vy_alt, bc_const, vbc_code, not_wall8, fluid8, v_bc, v_out,
-      vx_out, vy_out, v_na, vx_na, vy_na, v_na32, vx_na32, vy_na32, Grid{X, Y},
-      CipConsts{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx}, inv_two_dx,
-      static_cast<cudaStream_t>(stream));
-}
-
-// Dye fields (3, X, Y), vel (2, X, Y); d_bc is scratch. Constants as above.
+// The dye phase. Dye fields, bc_dye and the six outputs (C, X, Y); vel
+// (2, X, Y), the limited velocity; the masks (X, Y) int8. Storage and
+// constants as above.
 extern "C" int f2d_cip_dye_phase(
-    const float* dye, const float* dye_alt, const float* dyex, const float* dyex_alt,
-    const float* dyey, const float* dyey_alt, const float* vel, const float* bc_dye,
-    const int8_t* inflow8, const int8_t* not_wall8, const int8_t* fluid8, float* d_bc,
-    float* d_out, float* dx_out, float* dy_out, float* d_na, float* dx_na, float* dy_na, int X,
-    int Y, float dt, float dx, float dx2, float dx3, float inv_dx, float inv_dx2, float inv_re,
-    float inv_two_dx, void* stream) {
-  return cip_dye_phase<float>(
-      dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, bc_dye, inflow8, not_wall8, fluid8,
-      d_bc, d_out, dx_out, dy_out, d_na, dx_na, dy_na, d_na, dx_na, dy_na, Grid{X, Y},
-      CipConsts{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx}, inv_two_dx,
-      static_cast<cudaStream_t>(stream));
-}
-
-// The same with bf16 fields; d_na32, dx_na32, dy_na32: (3, X, Y) float scratch.
-extern "C" int f2d_cip_dye_phase_bf16(
-    const bf16* dye, const bf16* dye_alt, const bf16* dyex, const bf16* dyex_alt,
-    const bf16* dyey, const bf16* dyey_alt, const bf16* vel, const bf16* bc_dye,
-    const int8_t* inflow8, const int8_t* not_wall8, const int8_t* fluid8, float* d_bc,
-    bf16* d_out, bf16* dx_out, bf16* dy_out, bf16* d_na, bf16* dx_na, bf16* dy_na,
-    float* d_na32, float* dx_na32, float* dy_na32, int X, int Y, float dt, float dx, float dx2,
-    float dx3, float inv_dx, float inv_dx2, float inv_re, float inv_two_dx, void* stream) {
-  return cip_dye_phase<bf16>(
-      dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, bc_dye, inflow8, not_wall8, fluid8,
-      d_bc, d_out, dx_out, dy_out, d_na, dx_na, dy_na, d_na32, dx_na32, dy_na32, Grid{X, Y},
-      CipConsts{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx}, inv_two_dx,
-      static_cast<cudaStream_t>(stream));
+    const void* dye, const void* dye_alt, const void* dyex, const void* dyex_alt,
+    const void* dyey, const void* dyey_alt, const void* vel, const void* bc_dye,
+    const int8_t* inflow8, const int8_t* not_wall8, const int8_t* fluid8, void* d_out,
+    void* dx_out, void* dy_out, void* d_na, void* dx_na, void* dy_na, int X, int Y, int C,
+    int bf16_storage, float dt, float dx, float dx2, float dx3, float inv_dx, float inv_dx2,
+    float inv_re, float inv_two_dx, void* stream) {
+  const void* in[] = {dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, bc_dye};
+  void* out[] = {d_out, dx_out, dy_out, d_na, dx_na, dy_na};
+  const CipConsts c{dt, dx, dx2, dx3, inv_dx, inv_dx2, inv_re, inv_two_dx};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_storage) {
+    return cip_dye_phase<bf16>(in, inflow8, not_wall8, fluid8, out, Grid{X, Y}, C, c, s);
+  }
+  return cip_dye_phase<float>(in, inflow8, not_wall8, fluid8, out, Grid{X, Y}, C, c, s);
 }

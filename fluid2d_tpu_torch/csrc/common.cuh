@@ -3,8 +3,9 @@
 // Every field is a row-major (C, X, Y) tensor with Y contiguous; masks and
 // codes are (X, Y) int8. One thread owns one cell: threadIdx.x runs along Y
 // so a warp reads 32 consecutive elements, and blockIdx.z is the channel
-// where channels are independent. Neighbour reads clamp to the grid edge,
-// the semantics of the JAX package's shift_x / shift_y.
+// where channels are independent (the fused CIP phases work on tiles
+// instead, cip_phases.cu). Neighbour reads clamp to the grid edge, the
+// semantics of the JAX package's shift_x / shift_y.
 //
 // Storage. A field in device memory is stored as `float` or `bf16` (the
 // transport dtype of the state, SimConfig.dtype); all arithmetic is float.
@@ -44,6 +45,12 @@ inline constexpr bool kIsBf16 = std::is_same_v<T, bf16>;
 __device__ __forceinline__ float ld(const float* p, long long k) { return p[k]; }
 __device__ __forceinline__ float ld(const bf16* p, long long k) { return __bfloat162float(p[k]); }
 
+// ld through the read-only data cache, for planes no thread of the kernel writes.
+__device__ __forceinline__ float ldg(const float* p, long long k) { return __ldg(p + k); }
+__device__ __forceinline__ float ldg(const bf16* p, long long k) {
+  return __bfloat162float(__ldg(p + k));
+}
+
 __device__ __forceinline__ void st(float* p, long long k, float v) { p[k] = v; }
 __device__ __forceinline__ void st(bf16* p, long long k, float v) { p[k] = __float2bfloat16_rn(v); }
 
@@ -69,12 +76,38 @@ struct Grid {
 
   __host__ __device__ __forceinline__ long long plane() const { return (long long)X * Y; }
 
+  __device__ __forceinline__ int clamp_i(int i) const { return i < 0 ? 0 : (i >= X ? X - 1 : i); }
+  __device__ __forceinline__ int clamp_j(int j) const { return j < 0 ? 0 : (j >= Y ? Y - 1 : j); }
+
   // Flat offset of cell (clamp(i), clamp(j)) in one (X, Y) plane.
   __device__ __forceinline__ long long at(int i, int j) const {
-    i = i < 0 ? 0 : (i >= X ? X - 1 : i);
-    j = j < 0 ? 0 : (j >= Y ? Y - 1 : j);
-    return (long long)i * Y + j;
+    return (long long)clamp_i(i) * Y + clamp_j(j);
   }
+};
+
+// Cell accessors: a stage's per-cell arithmetic (bc.cuh, cip_advect.cuh,
+// cip_phases.cu) reads its operands as a(i, j), so one source line serves a
+// kernel that reads device memory and one that reads shared memory.
+//
+// Plane: one (X, Y) plane of storage type T in device memory, read at the
+// clamped cell (the jnp path's clamp-to-edge shifts) and widened to float.
+template <typename T>
+struct Plane {
+  const T* p;
+  Grid g;
+  __device__ __forceinline__ float operator()(int i, int j) const { return ldg(p, g.at(i, j)); }
+};
+
+// Window: values in shared memory for rows i0.. and columns j0.. of the
+// grid, row pitch W (float stage values, or per-cell flag bytes). Every
+// entry holds the value at the clamped cell, so a read past the grid's edge
+// gives what Plane gives: no clamp.
+template <int W, typename T = float>
+struct Window {
+  T* s;
+  int i0, j0;
+  __device__ __forceinline__ int idx(int i, int j) const { return (i - i0) * W + (j - j0); }
+  __device__ __forceinline__ T operator()(int i, int j) const { return s[idx(i, j)]; }
 };
 
 // The cell this thread owns; false for the threads past the ragged edge.

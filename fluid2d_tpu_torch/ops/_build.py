@@ -39,7 +39,8 @@ NVCC_FLAGS = (
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: argument types, in order. A "_bf16" twin takes the same
-# arguments with bf16 field pointers, plus the float scratch it names.
+# arguments with bf16 field pointers, plus the float scratch it names; an
+# entry point without one takes a bf16 storage flag.
 _SIGNATURES = {
     # p_cur, p_alt, u, w, pbc_code, fluid8, p_out, p_bc, v_lim, X, Y,
     # omega, 1-omega, dx, 1/(8·dt), v_limit, stream
@@ -50,12 +51,11 @@ _SIGNATURES = {
     # v, v_alt, fluid8, vort, vort_abs, v_out, X, Y, 1/dx, dt·ε, stream
     "f2d_confinement": [_P] * 6 + [_I, _I] + [_F] * 2 + [_P],
     "f2d_confinement_bf16": [_P] * 6 + [_I, _I] + [_F] * 2 + [_P],
-    # 11 inputs, 1 scratch, 6 outputs (bf16: + 3 float scratch), X, Y,
-    # dt, dx, dx², dx³, 1/dx, 1/dx², 1/re, 1/(2dx), stream
-    "f2d_cip_velocity_phase": [_P] * 18 + [_I, _I] + [_F] * 8 + [_P],
-    "f2d_cip_velocity_phase_bf16": [_P] * 21 + [_I, _I] + [_F] * 8 + [_P],
-    "f2d_cip_dye_phase": [_P] * 18 + [_I, _I] + [_F] * 8 + [_P],
-    "f2d_cip_dye_phase_bf16": [_P] * 21 + [_I, _I] + [_F] * 8 + [_P],
+    # 11 inputs, 6 outputs, X, Y, bf16 storage, dt, dx, dx², dx³, 1/dx,
+    # 1/dx², 1/re, 1/(2dx), stream
+    "f2d_cip_velocity_phase": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P],
+    # 11 inputs, 6 outputs, X, Y, C, bf16 storage, constants as above, stream
+    "f2d_cip_dye_phase": [_P] * 17 + [_I] * 4 + [_F] * 8 + [_P],
     # p_cur, p_alt, u, w, pbc_code, not_wall8, p_out, p_bc, 2 scratch, v_lim,
     # X, Y, n_iters, dx, 1/(8·dt), v_limit, stream
     "f2d_jacobi_iteration": [_P] * 11 + [_I] * 3 + [_F] * 3 + [_P],

@@ -13,16 +13,32 @@ Source notes.
 ``cip_velocity_phase_cuda``
   Replaces ``pallas_phases.py:cip_velocity_phase_pallas`` (body
   ``_cip_velocity_body``; advection ``pallas_stencil.py:768-910``).
-  Kernel ``csrc/cip_phases.cu`` + ``csrc/cip_advect.cuh``: four launches
-  (BC, non-advection, gradient update, advection) over both channels.
-  Bound: bytes — about 16 planes read and 14 written per channel pair
-  across the four launches, ~120 flops per cell in the advection.
+  Kernel ``csrc/cip_phases.cu`` ``cip_velocity_fused_kernel`` (+
+  ``csrc/cip_advect.cuh``, ``csrc/bc.cuh``): one launch; a block runs the
+  BC, non-advection, gradient update and advection of both channels on a
+  32×32 tile, each stage's values in a shared-memory window (tile + 3, + 2,
+  + 1), the halo recomputed per tile.
+  Bound: bytes — 11 operands read (the alternates only at wall cells) and
+  six (2, X, Y) planes written, ~150 flops per cell and channel. What the
+  fused design does about it: no stage result goes through device memory; a
+  block copies its operands into its windows in aligned 16-byte chunks
+  (``cp.async`` at float32, all in flight at once; 8-byte loads at bf16),
+  the halo rows a neighbouring tile also reads come from L2, and the stages
+  run from shared memory. What bounds it now: not the bytes — bf16, which
+  halves them, saves 3–6%, and 16-byte bf16 copies or vector stores of 2–4
+  cells a thread saved nothing (the latter cost registers, and so blocks
+  an SM; PERF.md §6); a block's fill, stages and stores run one after
+  another, with 5–6 blocks an SM to overlap them.
 
 ``cip_dye_phase_cuda``
   Replaces ``pallas_phases.py:cip_dye_phase_pallas`` (body
-  ``_cip_dye_body``). Same four launches over three channels, advected by
-  the limited velocity, value clamped to [0, 1].
-  Bound: bytes, as the velocity phase.
+  ``_cip_dye_body``). Kernel ``cip_dye_fused_kernel``: the same cascade on
+  a 32×32 tile of one dye channel (``blockIdx.z``), advected by the
+  limited velocity (copied into a window too), value clamped to [0, 1].
+  Bound: bytes, as the velocity phase; the same design. Each of the three
+  channel blocks of a tile copies the velocity and the masks again (from
+  L2); one block for all three channels kept too many loop-invariant values
+  in registers (PERF.md §6).
 
 ``mac_velocity_phase_cuda``
   Replaces ``pallas_phases.py:mac_velocity_phase_pallas`` (core
@@ -38,18 +54,21 @@ Source notes.
   advection by the limited velocity at fluid cells and the [0, 1] clamp.
   Bound: bytes, ~15–30 flops per cell and channel.
 
-What the simple design does about the bound: nothing yet. One thread per
-cell, ``threadIdx.x`` along the contiguous Y axis (coalesced), neighbours
-read from global memory with clamp-to-edge index math, every stage's
-result written to device memory and read back by the next launch. Tiles
-in shared memory and stage fusion are later work.
+What the MAC phases' and confinement's simple design does about the
+bound: nothing yet. One thread per cell, ``threadIdx.x`` along the
+contiguous Y axis (coalesced), neighbours read from global memory with
+clamp-to-edge index math, the BC'd field (confinement: the curl) written to
+device memory and read back by the next launch.
 
 Storage. The state's planes, the scene's ``bc_const`` / ``bc_dye`` and the
 outputs are float32 or bfloat16, one dtype per call (the transport dtype);
 arithmetic is float32 and each output is rounded once, where the plain
-version's ``.to(sd)`` rounds it. A stage result that a later launch reads
-stays float32 (scratch at bf16, ``csrc/common.cuh``), so the bf16 kernels
-are bit-identical to the plain versions wherever the float32 ones are.
+version's ``.to(sd)`` rounds it. A stage result that a later stage reads
+stays float32 (the CIP phases' shared-memory windows; the MAC phases' and
+confinement's float scratch at bf16, ``csrc/common.cuh``), so the bf16
+kernels are bit-identical to the plain versions wherever the float32 ones
+are. The CIP phases take a storage flag; the others have one C entry point
+per storage type.
 
 Each wrapper takes CPU tensors to its plain version and launches its
 kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
@@ -70,6 +89,7 @@ from fluid2d_tpu_torch.ops.cip import (
     non_advection_velocity,
 )
 from fluid2d_tpu_torch.ops.launch import (
+    bf16_storage,
     entry,
     launch,
     log_traffic,
@@ -147,7 +167,7 @@ def _cip_constants(re: float, dt: float, dx: float) -> tuple[float, ...]:
 
 
 def _wide_scratch(shape, sd, dev, n: int) -> list[torch.Tensor]:
-    """The `n` float planes a bf16 phase keeps beside its rounded outputs
+    """The `n` float planes a bf16 MAC phase keeps beside its rounded outputs
     for its later launches to read (none at float32, where the outputs are
     those planes). The caller holds them until the launch is queued."""
     if sd == torch.float32:
@@ -197,9 +217,9 @@ def cip_velocity_phase_cuda(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
     if on_cpu(v, "cip_velocity_phase_cuda"):
         return cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene, re, dt, dx)
     dev, sd = v.device, v.dtype
+    bf16 = bf16_storage("cip_velocity_phase_cuda", sd)
     _, x_rows, y_cols = v.shape
-    vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
-    name, i8 = entry("f2d_cip_velocity_phase", sd), torch.int8
+    vec, plane, i8 = (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
     ptrs = [
         require(v, "v", vec, sd, dev),
         require(p, "p", plane, sd, dev),
@@ -213,11 +233,9 @@ def cip_velocity_phase_cuda(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
         require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
         require(scene.fluid8, "scene.fluid8", plane, i8, dev),
     ]
-    v_bc = torch.empty(vec, dtype=torch.float32, device=dev)
     outs = tuple(torch.empty_like(v) for _ in range(6))
-    na32 = _wide_scratch(vec, sd, dev, 3)
-    launch(name, dev, *ptrs, v_bc.data_ptr(), *(o.data_ptr() for o in outs),
-           *(t.data_ptr() for t in na32), x_rows, y_cols, *_cip_constants(re, dt, dx))
+    launch("f2d_cip_velocity_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols,
+           bf16, *_cip_constants(re, dt, dx))
     cip_velocity_phase_cuda.launches += 1
     return outs
 
@@ -258,9 +276,9 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
         return cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
                                    re, dt, dx)
     dev, sd = dye.device, dye.dtype
-    _, x_rows, y_cols = dye.shape
-    dyes, vec, plane = (3, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
-    name, i8 = entry("f2d_cip_dye_phase", sd), torch.int8
+    bf16 = bf16_storage("cip_dye_phase_cuda", sd)
+    chans, x_rows, y_cols = dye.shape
+    dyes, vec, plane, i8 = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
     ptrs = [
         require(dye, "dye", dyes, sd, dev),
         require(dye_alt, "dye_alt", dyes, sd, dev),
@@ -274,11 +292,9 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
         require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
         require(scene.fluid8, "scene.fluid8", plane, i8, dev),
     ]
-    d_bc = torch.empty(dyes, dtype=torch.float32, device=dev)
     outs = tuple(torch.empty_like(dye) for _ in range(6))
-    na32 = _wide_scratch(dyes, sd, dev, 3)
-    launch(name, dev, *ptrs, d_bc.data_ptr(), *(o.data_ptr() for o in outs),
-           *(t.data_ptr() for t in na32), x_rows, y_cols, *_cip_constants(re, dt, dx))
+    launch("f2d_cip_dye_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols, chans,
+           bf16, *_cip_constants(re, dt, dx))
     cip_dye_phase_cuda.launches += 1
     return outs
 

@@ -39,17 +39,18 @@ Source notes.
   (body ``_cip_kernel`` :913): ``where(fluid, cip_advect(f, fx, fy, vel),
   alt)`` per output, C channels, the velocity given or ``vel is f`` (the
   velocity advecting itself).
-  Kernel: ``fluid2d_tpu_torch/csrc/cip_phases.cu`` ``f2d_cip_advect``, the
-  advection stage of the CIP phases (``advect_kernel``,
-  ``csrc/cip_advect.cuh``) with its planes at the storage type: one launch,
-  one thread per cell, channels on ``blockIdx.z``, no clamp.
+  Kernel: ``fluid2d_tpu_torch/csrc/cip_phases.cu`` ``f2d_cip_advect``
+  (``advect_kernel``): the CIP phases' advection cell
+  (``csrc/cip_advect.cuh:cip_advect_cell``) read from device memory, its
+  planes at the storage type: one launch, one thread per cell, channels on
+  ``blockIdx.z``, no clamp.
   Bound on the H100: bytes. At 3200×1600 float32 the dye form (C = 3, a
   separate velocity) moves 29 planes and the mask, 599.0 MB (0.179 ms at
   3.35 TB/s); the velocity form (C = 2, ``vel is f``) 373.8 MB (0.112 ms);
   about 120 flops per cell and channel (0.03 ms at 67 TFLOP/s).
-  What the design does about it: nothing yet, as the phases' advection
-  stage: the upwind and gradient neighbours are read from device memory and
-  mostly hit L1/L2.
+  What the design does about it: nothing yet: the upwind and gradient
+  neighbours are read from device memory and mostly hit L1/L2 (the fused
+  phases read them from shared-memory windows).
   Storage: every field float32 or bfloat16, one dtype per call; bf16 is
   widened on load, the arithmetic is float32 and each output is rounded
   once, so a bf16 call is bit-identical to its plain version on the card, as

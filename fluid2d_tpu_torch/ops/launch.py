@@ -3,7 +3,8 @@
 A wrapper hands raw pointers to a C entry point, so everything the
 kernel assumes is checked here first: device, dtype, shape, contiguity.
 A field is stored as float32 or bfloat16 (the transport dtype,
-``SimConfig.dtype``); each C entry point has one version per storage type,
+``SimConfig.dtype``); a C entry point takes a storage flag
+(:func:`bf16_storage`) or has one version per storage type,
 ``f2d_<kernel>`` and ``f2d_<kernel>_bf16`` (:func:`entry`).
 The kernel library is imported and built only when a CUDA tensor is
 launched on, never when a module is imported.
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["on_cpu", "require", "require_no_alias", "launch", "recip32", "TRAFFIC_LOG",
-           "log_traffic", "operand_bytes", "STORAGE_DTYPES", "entry"]
+           "log_traffic", "operand_bytes", "STORAGE_DTYPES", "bf16_storage", "entry"]
 
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' field storage types
 
@@ -52,13 +53,20 @@ def recip32(x: float) -> float:
     return float(np.float32(1.0 / x))
 
 
-def entry(name: str, dtype: torch.dtype) -> str:
-    """The C entry point of kernel `name` for fields stored as `dtype`;
-    raises for a dtype the kernels do not store."""
+def bf16_storage(name: str, dtype: torch.dtype) -> int:
+    """The storage flag of a C entry point that takes one (1 for bfloat16
+    fields, 0 for float32); raises for a dtype the kernels do not store."""
     if dtype not in STORAGE_DTYPES:
         msg = f"{name}: fields stored as {dtype}; the kernels take float32 or bfloat16"
         raise TypeError(msg)
-    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+    return int(dtype == torch.bfloat16)
+
+
+def entry(name: str, dtype: torch.dtype) -> str:
+    """The C entry point of kernel `name` for fields stored as `dtype`, for
+    the kernels with one entry point per storage type; raises for a dtype
+    the kernels do not store."""
+    return name + ("_bf16" if bf16_storage(name, dtype) else "")
 
 
 def on_cpu(t: torch.Tensor, wrapper: str) -> bool:

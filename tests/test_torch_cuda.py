@@ -22,6 +22,12 @@ are the plain versions' to the bit. The bf16 probes: the dtype-rate chains
 (C5a) within ``RATE_TOL_ULPS`` of their plain version, which a step more or
 fewer misses; the row copies (C5b) and the bf16 twin (C5c) bit-equal.
 
+The fused CIP phases (one launch a phase on tiles with a recomputed halo)
+bit-equal at float32 and bf16 on grids smaller than a tile, ragged grids,
+scene 3's outflow and scene 1's walls, with one launch and six output
+allocations (no scratch); C1 and the MAC phases, which share their per-cell
+functions, bit-equal on those scenes too.
+
 The standalone CIP advection (C1) bit-equal at float32 and bf16; the FMA
 sweep (C5d) within ``fma_rate_error_bound`` of the float64 plain version,
 which one round short exceeds; the geometry twin (C5e/f) within
@@ -479,3 +485,87 @@ def test_cuda_toy_elementwise_bit_equal(cuda_device, op, shape):
     torch.cuda.synchronize()
     assert cuda_probes.toy_elementwise_cuda.launches == before + 1
     assert torch.equal(got, cuda_probes.toy_elementwise_plain(x, op))
+
+
+# The fused CIP phases (one launch a phase on tiles with a recomputed halo)
+# where the tiling could go wrong: a grid smaller than one tile, one that is
+# not a multiple of it, scene 3's one-column outflow and scene 1's walls.
+# The kernels' row access depends on Y: element by element (Y % 4 != 0),
+# aligned 4-element chunks (Y % 4 == 0), and at bf16 16-byte pairs
+# (Y % 8 == 0); the last three grids take the aligned copies and vector
+# stores on ragged tiles, beside the scalar edge chunks.
+FUSED_GRIDS = {"smaller_than_tile": (3, 6), "ragged": (2, 37), "scene3_outflow": (3, 64),
+               "scene1_walls": (1, 37), "chunk_rows_ragged": (2, 36),
+               "chunk_rows_scene3": (3, 100), "pair_rows_ragged": (2, 40)}
+
+
+def _cip_phase_call(phase: str, bc: int, res: int, dtype: torch.dtype, device):
+    """(wrapper, plain version, args) of the CIP phase on seeded inputs of
+    scene `bc` at `res`, state and scene in `dtype`."""
+    cfg = SimConfig.create(resolution=res, re=1000.0, dtype=str(dtype).removeprefix("torch."))
+    sc = scene_for_dtype(get_scene(bc, res, device), cfg)
+    gen = torch.Generator(device="cpu").manual_seed(10 * bc + res)
+
+    def rnd(lead, scale, offset=0.0):
+        t = offset + scale * torch.randn((*lead, *sc.shape), generator=gen)
+        return t.to(dtype).to(device)
+
+    v = rnd((2,), 3.0)
+    if phase == "velocity":
+        args = (v, rnd((), 0.3), rnd((2,), 0.5), *(rnd((2,), 0.1) for _ in range(4)), sc,
+                cfg.re, cfg.dt, cfg.dx)
+        return cuda_phases.cip_velocity_phase_cuda, cuda_phases.cip_velocity_phase_plain, args
+    args = (rnd((3,), 0.5, 0.5), rnd((3,), 0.5, 0.5), *(rnd((3,), 0.1) for _ in range(4)), v, sc,
+            cfg.re, cfg.dt, cfg.dx)
+    return cuda_phases.cip_dye_phase_cuda, cuda_phases.cip_dye_phase_plain, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("grid", FUSED_GRIDS.values(), ids=FUSED_GRIDS.keys())
+@pytest.mark.parametrize("phase", ["velocity", "dye"])
+def test_cuda_fused_cip_phase_bit_equal_to_plain(cuda_device, phase, grid, dtype):
+    """One launch, six output allocations and no scratch, every output equal
+    to the plain version's to the bit at float32 and bf16."""
+    wrapper, plain, args = _cip_phase_call(phase, *grid, dtype, cuda_device)
+    before = wrapper.launches
+    allocs = torch.cuda.memory_stats(cuda_device).get("allocation.all.allocated", 0)
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"] - allocs == 6
+    _assert_bit_equal(got, plain(*args), f"cip_{phase}_phase")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bc", [3, 1], ids=["scene3_outflow", "scene1_walls"])
+@pytest.mark.parametrize("kernel", ["cip_advect", "mac_velocity_upwind", "mac_velocity_kk",
+                                    "mac_dye_upwind", "mac_dye_kk"])
+def test_cuda_shared_cell_rules_bit_equal_to_plain(cuda_device, kernel, bc, dtype):
+    """C1 (the CIP advection cell) and B2/B3 (the BC cell rules) share their
+    per-cell functions with the fused phases: bit-equal to their plain
+    versions on the outflow and wall scenes, at both dtypes."""
+    res = 37
+    cfg = SimConfig.create(resolution=res, re=1000.0, dtype=str(dtype).removeprefix("torch."))
+    sc = scene_for_dtype(get_scene(bc, res, cuda_device), cfg)
+    gen = torch.Generator(device="cpu").manual_seed(bc + 50)
+
+    def rnd(lead, scale, offset=0.0):
+        t = offset + scale * torch.randn((*lead, *sc.shape), generator=gen)
+        return t.to(dtype).to(cuda_device)
+
+    v, p, dye = rnd((2,), 3.0), rnd((), 0.3), rnd((3,), 0.5, 0.5)
+    if kernel == "cip_advect":
+        wrapper, plain = cuda_stencil.cip_advect_cuda, cuda_stencil.cip_advect_plain
+        args = (dye, *(rnd((3,), 0.1) for _ in range(2)), v, *(rnd((3,), 0.5) for _ in range(3)),
+                sc.fluid8, cfg.dt, cfg.dx)
+    elif kernel.startswith("mac_velocity"):
+        wrapper, plain = cuda_phases.mac_velocity_phase_cuda, cuda_phases.mac_velocity_phase_plain
+        args = (v, p, rnd((2,), 0.5), sc, kernel.rsplit("_", 1)[1], cfg.re, cfg.dt, cfg.dx)
+    else:
+        wrapper, plain = cuda_phases.mac_dye_phase_cuda, cuda_phases.mac_dye_phase_plain
+        args = (dye, rnd((3,), 0.5, 0.5), v, sc, kernel.rsplit("_", 1)[1], cfg.dt, cfg.dx)
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    _assert_bit_equal(got, plain(*args), kernel)

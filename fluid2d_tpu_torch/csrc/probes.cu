@@ -61,21 +61,58 @@
 //   along Y by `block_rows` along X (the port's phase kernels use 8 rows).
 //
 // row_window_kernel — the row-window copy of scripts/dma_rowwin_1600_check.py
-//   (C5g). One block per tile of t rows of an (X, Y) float plane: rows
-//   [rs, rs + t + 2h) (rs as that script clamps it) go into dynamic shared
-//   memory by Hopper bulk copies, one cp.async.bulk per row, completing on
-//   one mbarrier; the first and last blocks realign their window in shared
-//   memory (all reads of a chunk, a barrier, then its writes) and replicate
-//   the edge row; out = 2 · window[h : h + t]. Bound: bytes, 2·X·Y·4 at least;
-//   one block of up to 227 KB of shared memory fills an SM, so the copy is
-//   latency-bound in practice. The question, as on the TPU, is whether a full
-//   row window at Y = 1600 copies asynchronously at all.
+//   (C5g). Every tile of t rows of an (X, Y) float plane fetches its whole
+//   window, rows [rs, rs + t + 2h) (rs as that script clamps it), into
+//   shared memory by Hopper bulk copies (cp.async.bulk, one a row) completing
+//   on mbarriers, and out = 2 · the window's rows of the tile: rows h .. h + t
+//   of an interior window, 0 .. t of the first and 2h .. 2h + t of the last
+//   (the script's realignment, done by indexing). Bound: bytes, 2·X·Y·4 at
+//   least; the windows read (t + 2h)/t of the plane. The question, as on
+//   the TPU, is whether a full row window at Y = 1600 copies asynchronously
+//   at all.
+//   Design: a persistent, pipelined window. A block fills an SM (a window of
+//   204,800 bytes at Y = 1600), as many are launched as fit the card, and
+//   each walks the tiles i = blockIdx.x, += gridDim.x. Its shared
+//   memory is a ring of `slots` groups of h rows (slots ≥ t/h + 2: a window
+//   fits; the wrapper sizes it, ops/cuda_probes.py:row_window_slots), each
+//   slot with a `full` mbarrier (the rows landed) and an `empty` one (the
+//   consumer warps are done with it), the barriers after the ring. Warp 0's
+//   first thread is the producer: it issues the block's groups in order,
+//   seq = 0, 1, ..., into slot seq % slots, and refills a slot once the
+//   consumers have released its last group. The other warps are the
+//   consumers: for every group in order they wait on its `full` phase,
+//   store 2 · its rows as 16-byte vectors if the tile owns it (a halo group
+//   is fetched, as the probe asks, and never read), and arrive on its
+//   `empty` barrier. So the next tile's groups are in flight while this
+//   tile is stored. Every group of slot s passes both of its barriers once
+//   and in turn, so the phase of seq is seq / slots on each, and a wait
+//   never meets a barrier a phase behind or ahead of it, in whatever order
+//   the copies land: a consumer reaches seq only after its own wait on seq −
+//   slots, and the producer issues seq only after every consumer released
+//   seq − slots. The block leaves only after every copy has landed (the
+//   consumers waited on each). Bulk stores from the ring (2· in place, one
+//   cp.async.bulk a warp) were 9% slower on the H100, and t = 8, whose
+//   windows read 3× the plane against t = 16's 2×, 7% slower (PERF.md §6).
+//   ops/cuda_probes.py:row_window_schedule is this schedule in Python;
+//   tests/test_torch_probes.py replays it with the copies landing in issue
+//   order, halo groups last, and at random.
 //
 // toy_elementwise_kernel — the toy kernels of the el-op counter test
-//   (tests/test_profiling.py:134 x·2 + 1, :158 x/3 and x·3) (C6). One
-//   element a thread; o = x·c + 1 (c = 2) or o = x·c (c = 3, or the division's
-//   1/3 rounded as PyTorch's CUDA division by a Python scalar rounds it,
-//   ops/launch.py:recip32). Bound: bytes.
+//   (tests/test_profiling.py:134 x·2 + 1, :158 x/3 and x·3) (C6).
+//   o = x·c + 1 (c = 2) or o = x·c (c = 3, or the division's 1/3 rounded as
+//   PyTorch's CUDA division by a Python scalar rounds it,
+//   ops/launch.py:recip32), the product and the sum each rounded once
+//   (__fmul_rn, __fadd_rn), as the plain version rounds them. Bound: bytes.
+//   Design: a 16-byte vector stream. One 4-byte element a thread streams at
+//   about half of the copy rate on this card (PERF.md §6), so each
+//   thread moves kToyVec whole float4s, all loads issued before any store,
+//   neighbouring threads on neighbouring float4s; the first n % 4 threads
+//   also take the ragged tail past the last whole float4, as
+//   copy_add1_kernel does. A base of x or o that is not 16-byte aligned (a
+//   view at an odd offset) takes a scalar path inside the same kernel: the
+//   same kToyVec·4 elements a thread, one float a load, still coalesced.
+#include <algorithm>
+
 #include "common.cuh"
 
 using f2d::bf16;
@@ -86,6 +123,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kC4Chains = 8;  // C4: measure_fma_throughput's probe
 constexpr int kWindowThreads = 1024;
+constexpr int kToyVec = 4;  // C6: float4s a thread (1, 2 and 4 time the same, PERF.md §6)
 
 __global__ void copy_add1_kernel(const float4* __restrict__ x, float4* __restrict__ o,
                                  long long n4, const float* __restrict__ x_tail,
@@ -197,87 +235,150 @@ __device__ __forceinline__ bool mbarrier_try_wait(unsigned bar, unsigned parity)
   return done != 0;
 }
 
-// win[dst + e] = win[src + e] for e in [0, n), in chunks of kPer elements a
-// thread: each chunk is read whole, then written; chunks run from the end
-// when dst > src, so no chunk overwrites what a later one reads.
-__device__ void move_within(float* win, int dst, int src, int n) {
-  constexpr int kPer = 8;
-  const int chunk = kPer * blockDim.x;
-  const int n_chunks = (n + chunk - 1) / chunk;
-  for (int q = 0; q < n_chunks; ++q) {
-    const int c0 = (dst > src ? n_chunks - 1 - q : q) * chunk;
-    float buf[kPer];
-#pragma unroll
-    for (int m = 0; m < kPer; ++m) {
-      const int e = c0 + m * blockDim.x + threadIdx.x;
-      if (e < n) buf[m] = win[src + e];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < kPer; ++m) {
-      const int e = c0 + m * blockDim.x + threadIdx.x;
-      if (e < n) win[dst + e] = buf[m];
-    }
-    __syncthreads();
+// Waits for the phase of `parity` to complete. A wrong parity would wait for
+// ever: after ~10 s (2^34 cycles) it traps instead, so the launch fails.
+__device__ __forceinline__ void mbarrier_wait(unsigned bar, unsigned parity) {
+  const long long start = clock64();
+  while (!mbarrier_try_wait(bar, parity)) {
+    if (clock64() - start > (1ll << 34)) __trap();
   }
 }
 
-// Rows [row0, row0 + h) of win become copies of row `from`.
-__device__ void fill_rows(float* win, int row0, int from, int h, int Y) {
-  for (int e = threadIdx.x; e < h * Y; e += blockDim.x) win[row0 * Y + e] = win[from * Y + e % Y];
-  __syncthreads();
+// Tile i's window: its first row over h (i·t/h − 1, clamped as
+// ops/cuda_probes.py:_window_rows clamps it).
+__device__ __forceinline__ int window_group(int i, int tg, int x_groups) {
+  const int r = i * tg - 1, r_max = x_groups - tg - 2;
+  return r < 0 ? 0 : (r > r_max ? r_max : r);
 }
 
-// One block per tile of t rows; dynamic shared memory holds t + 2h rows of Y
-// floats (Y·4 a multiple of 16, a 16-byte aligned plane: the wrapper checks).
-__global__ void row_window_kernel(const float* __restrict__ a, float* __restrict__ out, int X,
-                                  int Y, int t, int h) {
+// Dynamic shared memory: `slots` groups of h rows of Y floats (Y·4 a
+// multiple of 16, a 16-byte aligned plane: the wrapper checks), then the
+// slots' `full` and `empty` barriers.
+__global__ void __launch_bounds__(kWindowThreads)
+    row_window_kernel(const float* __restrict__ a, float* __restrict__ out, int X, int Y, int t,
+                      int h, int slots) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) unsigned long long bar;
-  float* win = reinterpret_cast<float*>(smem);
-  const int rows = t + 2 * h;
-  const int i = blockIdx.x, n_t = X / t;
-  int r = i * (t / h) - 1;  // the window's first row in units of h, clamped
-  const int r_max = (X - t) / h - 2;
-  r = r < 0 ? 0 : (r > r_max ? r_max : r);
-  const long long rs = (long long)r * h;
-  const unsigned b = smem_addr(&bar);
-  const unsigned row_bytes = (unsigned)Y * 4u;
+  const int tg = t / h, groups = tg + 2, n_t = X / t, x_groups = X / h;
+  const unsigned row_bytes = (unsigned)Y * 4u, group_bytes = row_bytes * h;
+  auto* full = reinterpret_cast<unsigned long long*>(smem + (size_t)slots * group_bytes);
+  auto* empty = full + slots;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int consumers = blockDim.x / 32 - 1;
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+    for (int s = 0; s < slots; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&full[s]))
+                   : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(&empty[s])),
+                   "r"(consumers)
+                   : "memory");
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-                 "r"(row_bytes * rows)
-                 : "memory");
-    for (int q = 0; q < rows; ++q) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];\n" ::"r"(smem_addr(win + (long long)q * Y)),
-          "l"(a + (rs + q) * Y), "r"(row_bytes), "r"(b)
-          : "memory");
+  }
+  __syncthreads();  // the barriers are initialised before anyone uses them
+
+  if (warp == 0) {  // the producer
+    if (lane != 0) return;
+    int seq = 0;
+    for (int i = blockIdx.x; i < n_t; i += gridDim.x) {
+      const int r = window_group(i, tg, x_groups);
+      for (int q = 0; q < groups; ++q, ++seq) {
+        const int s = seq % slots;
+        if (seq >= slots) {  // the consumers released the slot's last group
+          mbarrier_wait(smem_addr(&empty[s]), ((seq - slots) / slots) & 1);
+        }
+        const unsigned bar = smem_addr(&full[s]);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                     "r"(group_bytes)
+                     : "memory");
+        const float* src = a + (long long)(r + q) * h * Y;
+        unsigned char* dst = smem + (size_t)s * group_bytes;
+        for (int row = 0; row < h; ++row) {
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+              "[%3];\n" ::"r"(smem_addr(dst + row * row_bytes)),
+              "l"(src + (long long)row * Y), "r"(row_bytes), "r"(bar)
+              : "memory");
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: every group waited on and released, 2 · each group the
+  // tile owns stored, 16 bytes a store
+  const int n4 = (int)(group_bytes / 16), ct = threadIdx.x - 32, n_ct = consumers * 32;
+  int seq = 0;
+  for (int i = blockIdx.x; i < n_t; i += gridDim.x) {
+    const int r = window_group(i, tg, x_groups), first = i * tg - r;
+    for (int q = 0; q < groups; ++q, ++seq) {
+      const int s = seq % slots;
+      mbarrier_wait(smem_addr(&full[s]), (seq / slots) & 1);
+      if (q >= first && q < first + tg) {
+        const float4* slot = reinterpret_cast<const float4*>(smem + (size_t)s * group_bytes);
+        float4* dst = reinterpret_cast<float4*>(out + (long long)(r + q) * h * Y);
+        for (int e = ct; e < n4; e += n_ct) {
+          float4 v = slot[e];
+          v.x *= 2.0f;
+          v.y *= 2.0f;
+          v.z *= 2.0f;
+          v.w *= 2.0f;
+          dst[e] = v;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(&empty[s]))
+                     : "memory");
+      }
     }
   }
-  __syncthreads();  // the barrier is initialised before anyone waits on it
-  while (!mbarrier_try_wait(b, 0)) {
-  }
-  if (i == 0) {  // window = rows [0, t + 2h): shift down by h, replicate row 0
-    move_within(win, h * Y, 0, (rows - h) * Y);
-    fill_rows(win, 0, h, h, Y);
-  }
-  if (i == n_t - 1) {  // window = rows [X − t − 2h, X): shift up by h, replicate row X − 1
-    move_within(win, 0, h * Y, (rows - h) * Y);
-    fill_rows(win, rows - h, rows - h - 1, h, Y);
-  }
-  float* o = out + (long long)i * t * Y;
-  for (int e = threadIdx.x; e < t * Y; e += blockDim.x) o[e] = 2.0f * win[h * Y + e];
 }
 
-// o = x·c + 1 (op 0) or x·c (ops 1 and 2).
+// o = x·c + 1 (op 0) or x·c (ops 1 and 2), each step rounded once.
+__device__ __forceinline__ float toy_op(float v, int op, float c) {
+  return op == 0 ? __fadd_rn(__fmul_rn(v, c), 1.0f) : __fmul_rn(v, c);
+}
+
+// A block covers kThreads · kToyVec float4s (4× as many floats); the launch
+// covers n.
 __global__ void toy_elementwise_kernel(const float* __restrict__ x, float* __restrict__ o,
                                        long long n, int op, float c) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  o[k] = op == 0 ? x[k] * c + 1.0f : x[k] * c;
+  const long long first = (long long)blockIdx.x * blockDim.x * kToyVec + threadIdx.x;
+  if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) & 15) == 0) {
+    const long long n4 = n / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* o4 = reinterpret_cast<float4*>(o);
+    float4 v[kToyVec];
+#pragma unroll
+    for (int m = 0; m < kToyVec; ++m) {
+      const long long k = first + (long long)m * blockDim.x;
+      if (k < n4) v[m] = x4[k];
+    }
+#pragma unroll
+    for (int m = 0; m < kToyVec; ++m) {
+      const long long k = first + (long long)m * blockDim.x;
+      if (k < n4) {
+        o4[k] = make_float4(toy_op(v[m].x, op, c), toy_op(v[m].y, op, c), toy_op(v[m].z, op, c),
+                            toy_op(v[m].w, op, c));
+      }
+    }
+    const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (k < n - 4 * n4) o[4 * n4 + k] = toy_op(x[4 * n4 + k], op, c);
+    return;
+  }
+  // misaligned: the same span of the flat array, one float a load
+  const long long base = (long long)blockIdx.x * blockDim.x * kToyVec * 4 + threadIdx.x;
+  float v[4 * kToyVec];
+#pragma unroll
+  for (int m = 0; m < 4 * kToyVec; ++m) {
+    const long long k = base + (long long)m * blockDim.x;
+    if (k < n) v[m] = x[k];
+  }
+#pragma unroll
+  for (int m = 0; m < 4 * kToyVec; ++m) {
+    const long long k = base + (long long)m * blockDim.x;
+    if (k < n) o[k] = toy_op(v[m], op, c);
+  }
 }
 
 inline unsigned blocks_for(long long threads, int per_block = kThreads) {
@@ -357,25 +458,41 @@ extern "C" int f2d_geometry_twin(const long long* table, int n_chan, int n_share
   return 0;
 }
 
-// a, out: (X, Y) float; X/t tiles, t a multiple of h, X/t ≥ 2 (the wrapper
-// checks, and that the window's (t + 2h)·Y·4 bytes fit a block).
-extern "C" int f2d_row_window(const float* a, float* out, int X, int Y, int t, int h,
+// a, out: (X, Y) float; X/t tiles, t a multiple of h, X/t ≥ 2, a ring of
+// `slots` ≥ t/h + 2 groups of h rows (sized by the wrapper:
+// ops/cuda_probes.py:row_window_slots), which with its barriers must fit the
+// shared memory a block may opt in to. As many persistent blocks as fit the
+// card, at most one a tile.
+extern "C" int f2d_row_window(const float* a, float* out, int X, int Y, int t, int h, int slots,
                               void* stream) {
-  const int smem = (t + 2 * h) * Y * 4;
-  cudaError_t err = cudaFuncSetAttribute(row_window_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err;
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess) {
+    return (int)err;
+  }
+  const long long smem = (long long)slots * ((long long)h * Y * 4 + 16);  // + 2 barriers a slot
+  if (slots < t / h + 2 || smem > optin) return (int)cudaErrorInvalidValue;
+  static const cudaError_t allowed = cudaFuncSetAttribute(  // once a process
+      row_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if ((err = allowed) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, row_window_kernel, kWindowThreads,
+                                                      (size_t)smem);
   if (err != cudaSuccess) return (int)err;
-  row_window_kernel<<<X / t, kWindowThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, out, X, Y, t, h);
+  const int grid = std::min(X / t, std::max(1, sms * per_sm));
+  row_window_kernel<<<grid, kWindowThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, out, X, Y, t, h, slots);
   F2D_CHECK_LAUNCH();
   return 0;
 }
 
-// x, o: n floats; op 0: o = x·c + 1, ops 1, 2: o = x·c.
+// x, o: n floats at any alignment; op 0: o = x·c + 1, ops 1, 2: o = x·c.
 extern "C" int f2d_toy_elementwise(const float* x, float* o, long long n, int op, float c,
                                    void* stream) {
-  toy_elementwise_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, o, n, op, c);
+  toy_elementwise_kernel<<<blocks_for((n + 4 * kToyVec - 1) / (4 * kToyVec)), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(x, o, n, op, c);
   F2D_CHECK_LAUNCH();
   return 0;
 }

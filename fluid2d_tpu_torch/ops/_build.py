@@ -83,8 +83,8 @@ _SIGNATURES = {
     "f2d_fma_sweep": [_P, _P, _L, _I, _I, _I, _F, _F, _P],
     # plane table, n_chan, n_shared, n_i8, n_out, X, Y, C, h, block rows, stream
     "f2d_geometry_twin": [_P] + [_I] * 9 + [_P],
-    # a, out, X, Y, t, h, stream
-    "f2d_row_window": [_P, _P] + [_I] * 4 + [_P],
+    # a, out, X, Y, t, h, ring slots, stream
+    "f2d_row_window": [_P, _P] + [_I] * 5 + [_P],
     # x, o, n, op, c, stream
     "f2d_toy_elementwise": [_P, _P, _L, _I, _F, _P],
     # x, o, n (bf16: pairs), steps, mode, c1, c2, c3, stream

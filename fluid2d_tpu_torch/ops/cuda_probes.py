@@ -50,18 +50,23 @@ Source notes (``csrc/probes.cu`` says more beside each kernel).
 ``row_window_cuda`` (C5g)
   Replaces ``scripts/dma_rowwin_1600_check.py:57``: every tile of t rows of
   an (X, Y) float32 plane fetches its (t + 2h)-row window into shared
-  memory with one Hopper bulk copy a row, the edge tiles realign it there,
-  and ``out = 2 · window[h : h + t]``, which is ``2 · a`` to the bit. The
-  window must fit a block's 232,448 bytes of shared memory
+  memory with one Hopper bulk copy a row, and ``out = 2 ·`` the window's
+  rows of the tile (the edge tiles realigned by indexing), which is ``2 ·
+  a`` to the bit. Persistent blocks walk the tiles through a ring of
+  ``row_window_slots`` groups of h rows, the next tile's groups in flight
+  while this one is stored (``row_window_schedule``). The ring must hold a
+  window within a block's 232,448 bytes of shared memory
   (``row_window_tile``). Bound: bytes.
 
 ``toy_elementwise_cuda`` (C6)
   Replaces ``tests/test_profiling.py:134`` (``x·2 + 1``) and ``:158``
-  (``x/3``, ``x·3``): the el-op counter test's toy kernels. The division is
-  ``x · recip32(3)``, as PyTorch's CUDA division by a Python scalar rounds
-  it, so every op is bit-equal to its plain version on the card. The port's
-  el-op counter (``utils/profiling.py:collect_elops``) counts the plain
-  versions. Bound: bytes.
+  (``x/3``, ``x·3``): the el-op counter test's toy kernels, as a stream of
+  whole float4s a thread (a scalar path in the kernel for a base that is
+  not 16-byte aligned). The division is ``x · recip32(3)``, as PyTorch's
+  CUDA division by a Python scalar rounds it, so every op is bit-equal to
+  its plain version on the card. The port's el-op counter
+  (``utils/profiling.py:collect_elops``) counts the plain versions. Bound:
+  bytes.
 
 Each wrapper takes CPU tensors to its plain version and launches its
 kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
@@ -95,6 +100,8 @@ __all__ = [
     "geometry_twin_plain",
     "row_window_cuda",
     "row_window_plain",
+    "row_window_schedule",
+    "row_window_slots",
     "row_window_tile",
     "toy_elementwise_cuda",
     "toy_elementwise_plain",
@@ -388,20 +395,51 @@ geometry_twin_cuda.launches = 0
 
 # --- C5g: row window ------------------------------------------------------------------
 
-ROW_WINDOW_SMEM = 232_448  # shared memory one block may use on the H100 (bytes)
-# the kernel's static shared memory: its 8-byte barrier, padded to the window's
-# 128-byte alignment (nvcc -Xptxas -v: "128 bytes smem")
-_STATIC_SMEM = 128
+ROW_WINDOW_SMEM = 232_448  # shared memory one block may opt in to on the H100 (bytes)
+
+
+def row_window_slots(y_cols: int, h: int = 8) -> int:
+    """The ring's slots: groups of h float32 rows of `y_cols`, each with its
+    two 8-byte barriers, that fit a block's shared memory (4 at Y = 1600).
+    The kernel takes this count and checks only that it fits the card."""
+    return ROW_WINDOW_SMEM // (h * y_cols * 4 + 16)
 
 
 def row_window_tile(x_rows: int, y_cols: int, h: int = 8) -> int | None:
     """The largest t, a multiple of 8 dividing `x_rows`, whose float32
-    window of t + 2h rows of `y_cols` fits a block's shared memory beside
-    the kernel's barrier; None when no t does."""
+    window of t + 2h rows of `y_cols` fits the kernel's ring (t/h + 2 ≤
+    row_window_slots: a whole window in shared memory); None when no t
+    does."""
     fits = [t for t in range(8, x_rows // 2 + 1, 8)
-            if x_rows % t == 0 and t % h == 0
-            and (t + 2 * h) * y_cols * 4 + _STATIC_SMEM <= ROW_WINDOW_SMEM]
+            if x_rows % t == 0 and t % h == 0 and t // h + 2 <= row_window_slots(y_cols, h)]
     return max(fits) if fits else None
+
+
+def row_window_schedule(x_rows: int, t: int, h: int, slots: int,
+                        grid: int) -> list[list[tuple[int, int, int, int, bool]]]:
+    """The row window kernel's schedule (csrc/probes.cu:row_window_kernel),
+    per persistent block, in the order its producer issues the groups:
+    ``(tile, seq, slot, row, stored)`` for each group of h rows of each
+    window of the block's tiles (blockIdx, += grid): rows [row, row + h)
+    go into ring slot seq % slots, and the consumers store ``2 ·`` them to
+    the same rows of the output when `stored` (the group lies in the tile),
+    else the group is a halo that nobody reads. The consumers wait on every
+    group's landing in order and release it (after its stores, if any); a
+    slot is refilled with the block's group seq + slots once its group seq
+    is released."""
+    tg, n_t = t // h, x_rows // t
+    first_rows = _window_rows(x_rows, t, h)[:, 0].tolist()
+    blocks = []
+    for b in range(min(grid, n_t)):
+        groups, seq = [], 0
+        for tile in range(b, n_t, grid):
+            r = first_rows[tile] // h
+            first = tile * tg - r  # the window's first group that the tile stores
+            for q in range(tg + 2):
+                groups.append((tile, seq, seq % slots, (r + q) * h, first <= q < first + tg))
+                seq += 1
+        blocks.append(groups)
+    return blocks
 
 
 def _window_rows(x_rows: int, t: int, h: int) -> torch.Tensor:
@@ -439,12 +477,13 @@ def row_window_cuda(a: torch.Tensor, t: int, h: int = 8) -> torch.Tensor:
     if ptr % 16 or (y_cols * 4) % 16:
         msg = "row_window_cuda: bulk copies need 16-byte aligned rows (the base and Y·4)"
         raise ValueError(msg)
-    window = (t + 2 * h) * y_cols * 4
-    if window + _STATIC_SMEM > ROW_WINDOW_SMEM:
-        msg = f"row_window_cuda: a window of {window} bytes does not fit {ROW_WINDOW_SMEM}"
+    slots = row_window_slots(y_cols, h)
+    if t // h + 2 > slots:
+        msg = (f"row_window_cuda: a window of {(t + 2 * h) * y_cols * 4} bytes does not fit "
+               f"the ring of {slots} groups in {ROW_WINDOW_SMEM} bytes")
         raise ValueError(msg)
     out = torch.empty_like(a)
-    launch("f2d_row_window", dev, ptr, out.data_ptr(), x_rows, y_cols, t, h)
+    launch("f2d_row_window", dev, ptr, out.data_ptr(), x_rows, y_cols, t, h, slots)
     row_window_cuda.launches += 1
     return out
 

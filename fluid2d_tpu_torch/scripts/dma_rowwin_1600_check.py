@@ -15,9 +15,12 @@ of 8 dividing 3200 whose window fits beside its barrier (t = 16 at Y = 1600,
 204,800 bytes). At a Y where no t fits (Y = 4096: one row is 16 KB) it prints
 "does not fit" before any launch. Otherwise it prints t, the window's bytes,
 ``OK`` or ``WRONG`` (the output against ``2 · a``, bit for bit) and the time
-of a call beside ``torch.mul(a, 2.0, out=o)``; it exits 1 on ``WRONG``.
+of a call beside ``torch.mul(a, 2.0, out=o)``; it exits 1 on ``WRONG``. Each
+time is the median of `--iters` single calls behind a spin kernel
+(``scripts/phase_bench.py:median_ms``, the yardstick of every kernel time);
+on the CPU (``--device cpu``, a check of the harness) nothing is timed.
 
-    python -m fluid2d_tpu_torch.scripts.dma_rowwin_1600_check [Y]
+    python -m fluid2d_tpu_torch.scripts.dma_rowwin_1600_check [Y] [--iters 20]
 """
 
 from __future__ import annotations
@@ -29,17 +32,18 @@ import torch
 
 from fluid2d_tpu_torch.bench import resolve_device
 from fluid2d_tpu_torch.ops.cuda_probes import ROW_WINDOW_SMEM, row_window_cuda, row_window_tile
-from fluid2d_tpu_torch.utils.profiling import device_name, seconds_per_call
+from fluid2d_tpu_torch.scripts.phase_bench import TIMED_CALLS, median_ms
+from fluid2d_tpu_torch.utils.profiling import device_name
 
 __all__ = ["X_ROWS", "HALO", "check", "main"]
 
 X_ROWS, HALO = 3200, 8
 
 
-def check(y: int = 1600, iters: int = 200, device="cuda") -> dict:
+def check(y: int = 1600, iters: int = TIMED_CALLS, device="cuda") -> dict:
     """The copy at lane width `y`: t, the window's bytes, whether it fits,
-    whether it is bit-equal to ``2 · a``, and the ms of a call and of
-    ``torch.mul(a, 2.0, out=o)``. Prints one line."""
+    whether it is bit-equal to ``2 · a``, and on a card the ms of a call and
+    of ``torch.mul(a, 2.0, out=o)`` (None on the CPU). Prints one line."""
     dev = resolve_device(device)
     t = row_window_tile(X_ROWS, y, HALO)
     if t is None:
@@ -50,12 +54,15 @@ def check(y: int = 1600, iters: int = 200, device="cuda") -> dict:
     window = (t + 2 * HALO) * y * 4
     a = torch.arange(X_ROWS * y, dtype=torch.float32).reshape(X_ROWS, y).to(dev)
     ok = bool(torch.equal(row_window_cuda(a, t, HALO), 2.0 * a))
-    ms = seconds_per_call(lambda: row_window_cuda(a, t, HALO), iters, dev) * 1e3
-    o = torch.empty_like(a)
-    mul_ms = seconds_per_call(lambda: torch.mul(a, 2.0, out=o), iters, dev) * 1e3
+    ms = mul_ms = None
+    times = "not timed on the CPU"
+    if dev.type == "cuda":
+        o = torch.empty_like(a)
+        ms = median_ms(lambda: row_window_cuda(a, t, HALO), iters)
+        mul_ms = median_ms(lambda: torch.mul(a, 2.0, out=o), iters)
+        times = f"{ms:.4f} ms a call, torch.mul(a, 2.0, out=o) {mul_ms:.4f} ms"
     print(f"lane width {y}: t={t}, window {t + 2 * HALO}×{y} floats = {window} bytes: copy ran, "
-          f"values {'OK' if ok else 'WRONG'}; {ms:.4f} ms a call, torch.mul(a, 2.0, out=o) "
-          f"{mul_ms:.4f} ms", flush=True)
+          f"values {'OK' if ok else 'WRONG'}; {times}", flush=True)
     return {"y": y, "t": t, "fits": True, "window_bytes": window, "ok": ok, "ms": ms,
             "mul_ms": mul_ms}
 
@@ -63,7 +70,7 @@ def check(y: int = 1600, iters: int = 200, device="cuda") -> dict:
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("y", type=int, nargs="?", default=1600, help="lane width Y")
-    p.add_argument("--iters", type=int, default=200)
+    p.add_argument("--iters", type=int, default=TIMED_CALLS, help="timed calls")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)

@@ -1,7 +1,7 @@
 """Time the fused kernels and the headline step, one tree or several in turn.
 
     python -m fluid2d_tpu_torch.scripts.phase_bench [--res 1600] [--calls 20]
-        [--steps 200] [--json PATH] [--trees DIR [DIR ...]]
+        [--steps 200] [--json PATH] [--trees DIR [DIR ...]] [--probes-only]
 
 At float32 and bf16, on seeded fields of scene 2 at the res grid (2·res ×
 res), each the median of `calls` CUDA-event calls as ``chip_smoke.py`` times a
@@ -15,11 +15,22 @@ kernel:
 then, at float32, the kernels that share the phases' per-cell functions (C1's
 dye form, B2 and B3 upwind); the C3 twins of the mixes the tree registers
 (``mix_twin``: the same bytes read once at reach 0) and the C5f dye-mix twin
-at reach 1; the headline steps/s (``bench.bench_config``: res CIP, scene 2,
-both dtypes). Each kernel's bound is the bytes its function needs on the scene
+at reach 1; the probes that stream a plane, each beside the one PyTorch call
+of the same function on the same float32 plane (``probes_ms``), the plane
+(2·res, res) but where said:
+  toy_div3, toy_mul3  C6: x/3 and x·3 (``torch.div``, ``torch.mul`` with out=)
+  row_window          C5g at ``row_window_tile``'s t (``torch.mul(a, 2.0, out=o)``)
+  row_window_no_tail  C5g on (2·t·SMs, res): two tiles for each persistent
+                      block at res=1600 (one block an SM), so no block idles
+                      while others take a last tile
+and the headline steps/s (``bench.bench_config``: res CIP, scene 2, both
+dtypes). Each kernel's bound is the bytes its function needs on the scene
 (``utils/profiling.py:needed_bytes``: the registered mix's, with each
 alternate and scene constant counted at the cells that read it) at the card's
 published rate (``HBM_BYTES_PER_S``); the whole mix's bound stands beside it.
+A probe's bound (``<name>_bound``) is its plane read once and written once.
+``--probes-only``
+times the probes alone (a sweep of probe variants).
 
 With ``--trees``, each tree's package is timed in a process of its own
 (``PYTHONPATH=<tree>``), in the order given, so parent against change in one
@@ -47,7 +58,8 @@ from fluid2d_tpu_torch.models.common import update_pressure_and_limit
 from fluid2d_tpu_torch.ops import cuda_phases, cuda_probes, cuda_stencil
 from fluid2d_tpu_torch.utils import profiling
 
-__all__ = ["median_ms", "phase_calls", "shared_calls", "time_phases", "BOUND_MIX", "main"]
+__all__ = ["median_ms", "phase_calls", "probe_calls", "shared_calls", "time_phases", "BOUND_MIX",
+           "main"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Each timed call's registered operand mix, from which its bound is taken.
@@ -147,6 +159,43 @@ def shared_calls(res: int, dev) -> dict[str, tuple]:
     }
 
 
+def probe_calls(res: int, dev) -> dict[str, tuple]:
+    """{name: (wrapper call, library call, plane)} for the streaming probes
+    on seeded float32 planes, (2·res, res) but for ``row_window_no_tail``'s
+    (2·t·SMs, res); the library call writes into a preallocated output, as
+    the wrapper's own allocation is not the function."""
+    gen = torch.Generator(device=dev).manual_seed(97)
+    t = cuda_probes.row_window_tile(2 * res, res)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x = torch.randn((2 * res, res), generator=gen, device=dev)
+    y = torch.randn((2 * t * sms, res), generator=gen, device=dev)
+    o, p = torch.empty_like(x), torch.empty_like(y)
+    return {
+        "toy_div3": (lambda: cuda_probes.toy_elementwise_cuda(x, "div3"),
+                     lambda: torch.div(x, 3.0, out=o), x),
+        "toy_mul3": (lambda: cuda_probes.toy_elementwise_cuda(x, "mul3"),
+                     lambda: torch.mul(x, 3.0, out=o), x),
+        "row_window": (lambda: cuda_probes.row_window_cuda(x, t),
+                       lambda: torch.mul(x, 2.0, out=o), x),
+        "row_window_no_tail": (lambda: cuda_probes.row_window_cuda(y, t),
+                               lambda: torch.mul(y, 2.0, out=p), y),
+    }
+
+
+def probe_ms(res: int, calls: int, dev) -> dict:
+    """Each probe's ms, its library call's (``<name>_library``) and its
+    bound (``<name>_bound``: its plane read once and written once at the
+    published rate); ``row_window_no_tail_rows``: that plane's rows."""
+    out = {}
+    for name, (kernel, library, plane) in probe_calls(res, dev).items():
+        out[name] = median_ms(kernel, calls)
+        out[f"{name}_library"] = median_ms(library, calls)
+        out[f"{name}_bound"] = 2 * plane.nbytes / profiling.HBM_BYTES_PER_S * 1e3
+        if name == "row_window_no_tail":
+            out[f"{name}_rows"] = plane.shape[0]
+    return out
+
+
 def time_phases(res: int, calls: int, dev) -> dict:
     """The phase calls at both dtypes: ms a call."""
     return {f"{name}_{dname}": median_ms(lambda wrapper=wrapper, args=args: wrapper(*args), calls)
@@ -178,10 +227,13 @@ def smi_line() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def measure(res: int, calls: int, steps: int) -> dict:
-    """Every time of one tree, in this process."""
+def measure(res: int, calls: int, steps: int, probes_only: bool = False) -> dict:
+    """Every time of one tree (the probes' alone with `probes_only`), in
+    this process."""
     dev = resolve_device("cuda")
-    result = {"device": smi_line(), "res": res}
+    result = {"device": smi_line(), "res": res, "probes_ms": probe_ms(res, calls, dev)}
+    if probes_only:
+        return result
     result["phases_ms"] = time_phases(res, calls, dev)
     result["shared_ms"] = {name: median_ms(lambda fn=fn, a=a: fn(*a), calls)
                            for name, (fn, a) in shared_calls(res, dev).items()}
@@ -210,6 +262,8 @@ def run_tree(tree: str, args) -> dict:
     """measure() for the package of `tree`, in a process of its own."""
     cmd = [sys.executable, str(Path(__file__).resolve()), "--times-only", "--res", str(args.res),
            "--calls", str(args.calls), "--steps", str(args.steps)]
+    if args.probes_only:
+        cmd.append("--probes-only")
     env = {**os.environ, "PYTHONPATH": str(Path(tree).resolve())}
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
@@ -226,14 +280,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--json", default=None)
     ap.add_argument("--trees", nargs="+", default=None,
                     help="time each tree's package in turn (a process each)")
+    ap.add_argument("--probes-only", action="store_true",
+                    help="time the streaming probes alone")
     ap.add_argument("--times-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.times_only:
-        result = measure(args.res, args.calls, args.steps)
+        result = measure(args.res, args.calls, args.steps, args.probes_only)
     else:
         resolve_device("cuda")
         runs = ([run_tree(tree, args) for tree in args.trees] if args.trees
-                else [measure(args.res, args.calls, args.steps)])
+                else [measure(args.res, args.calls, args.steps, args.probes_only)])
         result = {"device": smi_line(), "res": args.res, **bounds_ms(args.res), "runs": runs}
     print(json.dumps(result), flush=True)
     if args.json:

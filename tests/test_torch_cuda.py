@@ -36,8 +36,9 @@ bit-equal there too.
 The standalone CIP advection (C1) bit-equal at float32 and bf16; the FMA
 sweep (C5d) within ``fma_rate_error_bound`` of the float64 plain version,
 which one round short exceeds; the geometry twin (C5e/f) within
-1e-5·max(1, |ref|max); the row window (C5g) and the el-op toys (C6)
-bit-equal.
+1e-5·max(1, |ref|max); the row window (C5g, with 1, 2 and 8 tiles a
+persistent block) and the el-op toys (C6, with ragged tails and a
+misaligned view) bit-equal.
 """
 
 import numpy as np
@@ -488,12 +489,49 @@ def test_cuda_row_window_bit_equal(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_block", [1, 2, 8])
+def test_cuda_row_window_persistent_blocks(cuda_device, per_block):
+    """C5g at Y = 1600 (a ring of 4 groups fills an SM, one block an SM) on
+    planes of 1, 2 and 8 tiles of 16 rows a persistent block: every ring
+    slot refilled 0, 1 and 7 times; one launch, bit-equal to 2·a and to the
+    plain windows."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    shape = (16 * sms * per_block, 1600)
+    assert cuda_probes.row_window_tile(*shape) == 16 and cuda_probes.row_window_slots(1600) == 4
+    a = torch.randn(shape, generator=torch.Generator().manual_seed(per_block)).to(cuda_device)
+    before = cuda_probes.row_window_cuda.launches
+    got = cuda_probes.row_window_cuda(a, 16)
+    torch.cuda.synchronize()
+    assert cuda_probes.row_window_cuda.launches == before + 1
+    assert torch.equal(got, 2.0 * a)
+    assert torch.equal(got, cuda_probes.row_window_plain(a, 16))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(32, 128), (8, 128), (3200, 1600)])
 @pytest.mark.parametrize("op", cuda_probes.TOY_OPS)
 def test_cuda_toy_elementwise_bit_equal(cuda_device, op, shape):
     """C6: each toy bit-equal to its plain version on the card (the division
     as PyTorch's CUDA division by a Python scalar rounds it)."""
     x = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    before = cuda_probes.toy_elementwise_cuda.launches
+    got = cuda_probes.toy_elementwise_cuda(x, op)
+    torch.cuda.synchronize()
+    assert cuda_probes.toy_elementwise_cuda.launches == before + 1
+    assert torch.equal(got, cuda_probes.toy_elementwise_plain(x, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+@pytest.mark.parametrize("n", [4 * 1000 + 1, 4 * 1000 + 2, 4 * 1000 + 3, 1, 2, 3, 4 * 1000])
+@pytest.mark.parametrize("op", cuda_probes.TOY_OPS)
+def test_cuda_toy_elementwise_ragged_and_misaligned(cuda_device, op, n, offset):
+    """C6's vector stream with a ragged tail (n % 4 = 1, 2, 3), shorter than
+    one float4, and on a view at offset 1 (not 16-byte aligned: the kernel's
+    scalar path): one launch, bit-equal to the plain version."""
+    base = torch.randn(n + 1, generator=torch.Generator().manual_seed(n)).to(cuda_device)
+    x = base[offset:offset + n]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
     before = cuda_probes.toy_elementwise_cuda.launches
     got = cuda_probes.toy_elementwise_cuda(x, op)
     torch.cuda.synchronize()

@@ -236,6 +236,178 @@ def test_row_window_tile_fits_shared_memory():
         cuda_probes.row_window_cuda(torch.zeros((64, 8)), 24)
 
 
+def _replay(a: np.ndarray, t: int, h: int, slots: int, grid: int, landing: str = "in_order",
+            ring: int | None = None, early_release: bool = False,
+            skip_halo: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """row_window_schedule run block by block as the kernel's three agents
+    taking turns: the producer issues group seq into its slot once the
+    slot's `empty` barrier shows seq − slots released; the copy engine lands
+    one group in flight (`landing`: the oldest first, "in_order"; the oldest
+    stored group before any halo group, "halo_last"; any, "random"); the
+    consumers wait on each group's `full` phase, store 2· the tile's groups
+    and release each group. Turns go to the first agent that can move:
+    producer, engine, consumers ("in_order"), consumers, producer, engine
+    ("halo_last"), or at random. Each barrier counts its completed phases,
+    and a wait on phase k returns once that count's lowest bit differs from
+    k's, so a wait on a barrier a phase behind returns at once, as on the
+    card. Controls: a ring of `ring` < `slots` groups (slot s's rows at
+    s % ring); `early_release` (a group released as it lands, before its
+    stores); `skip_halo` (consumers neither wait on nor release halo groups,
+    and the producer refills a halo's slot once the halo lands). Returns
+    the output (NaN where nothing was stored) and the times each row was
+    stored; raises AssertionError on a deadlock."""
+    x_rows, y_cols = a.shape
+    ring = slots if ring is None else ring
+    rng = np.random.default_rng(x_rows * t + slots)
+    out = np.full_like(a, np.nan)
+    stores = np.zeros(x_rows, int)
+    for groups in cuda_probes.row_window_schedule(x_rows, t, h, slots, grid):
+        mem = np.full((ring, h, y_cols), np.nan, np.float32)
+        full, empty = [0] * slots, [0] * slots  # completed phases
+        producer_waits = [0] * slots  # skip_halo: the producer's own `empty` phase a slot
+        in_flight, issued, done, stage = [], 0, 0, "wait"
+
+        def passes(count, seq):  # mbarrier.try_wait.parity for group seq's phase
+            return (count & 1) != ((seq // slots) & 1)
+
+        def produce():
+            nonlocal issued
+            if issued == len(groups):
+                return False
+            seq, s = issued, issued % slots
+            if seq >= slots:
+                if not skip_halo:
+                    if not passes(empty[s], seq - slots):
+                        return False
+                elif not groups[seq - slots][4]:  # a halo: its landing releases it
+                    if not passes(full[s], seq - slots):
+                        return False
+                else:
+                    if (empty[s] & 1) == (producer_waits[s] & 1):
+                        return False
+                    producer_waits[s] += 1
+            in_flight.append(seq)
+            issued += 1
+            return True
+
+        def land():
+            if not in_flight:
+                return False
+            if landing == "random":
+                k = int(rng.integers(len(in_flight)))
+            elif landing == "halo_last":
+                k = next((k for k, j in enumerate(in_flight) if groups[j][4]), 0)
+            else:
+                k = 0
+            seq = in_flight.pop(k)
+            _, _, s, row, _ = groups[seq]
+            mem[s % ring] = a[row:row + h]
+            full[s] += 1
+            return True
+
+        def consume():
+            nonlocal done, stage
+            if done == len(groups):
+                return False
+            _, seq, s, row, stored = groups[done]
+            if skip_halo and not stored:
+                done += 1
+                return True
+            if stage == "wait":
+                if not passes(full[s], seq):
+                    return False
+                stage = "store"
+                if early_release:
+                    empty[s] += 1
+                return True
+            if stored:
+                out[row:row + h] = mem[s % ring] * np.float32(2.0)
+                stores[row:row + h] += 1
+            if not early_release:
+                empty[s] += 1
+            done, stage = done + 1, "wait"
+            return True
+
+        agents = {"in_order": (produce, land, consume),
+                  "halo_last": (consume, produce, land)}.get(landing)
+        while done < len(groups) or in_flight or issued < len(groups):
+            order = agents or rng.permutation([produce, land, consume])
+            if not any(agent() for agent in order):
+                raise AssertionError(f"deadlock at group {done} of {len(groups)}")
+    return out, stores
+
+
+ROW_WINDOW_CASES = [(64, 16, 16, 4), (64, 16, 8, 3), (48, 8, 24, 5), (3200, 4, 16, 4),
+                    (256, 64, 128, 32), (256, 64, 8, 32)]  # (X, Y, t, slots)
+LANDINGS = ["in_order", "halo_last", "random"]
+
+
+@pytest.mark.parametrize("landing", LANDINGS)
+@pytest.mark.parametrize("grid", ["one", "fewer", "more"])
+@pytest.mark.parametrize(("x_rows", "y_cols", "t", "slots"), ROW_WINDOW_CASES)
+def test_row_window_schedule_replays_to_2a(x_rows, y_cols, t, slots, grid, landing):
+    """The persistent kernel's schedule, replayed with the copies landing
+    in issue order, halo groups last, and at random, stores every row once
+    and gives 2·a to the bit, with one block, fewer blocks than tiles and
+    more; each tile's groups are its clamped window (_window_rows), in
+    order."""
+    h, n_t = 8, x_rows // t
+    a = np.random.default_rng(x_rows + t).standard_normal((x_rows, y_cols)).astype(np.float32)
+    blocks = {"one": 1, "fewer": max(1, n_t // 3), "more": n_t + 5}[grid]
+    out, stores = _replay(a, t, h, slots, blocks, landing)
+    np.testing.assert_array_equal(out, 2.0 * a)
+    assert (stores == 1).all()
+    windows = cuda_probes._window_rows(x_rows, t, h).numpy()
+    for groups in cuda_probes.row_window_schedule(x_rows, t, h, slots, blocks):
+        for k, (tile, seq, slot, row, _) in enumerate(groups):
+            assert (seq, slot, row) == (k, k % slots, windows[tile][(k % (t // h + 2)) * h])
+
+
+@pytest.mark.parametrize(("x_rows", "y_cols", "t", "slots"), ROW_WINDOW_CASES)
+def test_row_window_replay_sees_a_short_ring_and_an_early_release(x_rows, y_cols, t, slots):
+    """Controls, with one block so that its ring wraps: a ring one group
+    short of the schedule's slots (two slots share one), or a group's slot
+    released when it lands, lets the producer overwrite rows before they
+    are stored."""
+    a = np.random.default_rng(t).standard_normal((x_rows, y_cols)).astype(np.float32)
+    assert x_rows // t * (t // 8 + 2) > slots
+    short, _ = _replay(a, t, 8, slots, 1, ring=slots - 1)
+    early, _ = _replay(a, t, 8, slots, 1, early_release=True)
+    assert not np.array_equal(short, 2.0 * a)
+    assert not np.array_equal(early, 2.0 * a)
+
+
+@pytest.mark.parametrize(("x_rows", "y_cols", "t", "slots"), ROW_WINDOW_CASES)
+def test_row_window_replay_sees_consumers_that_skip_halo_groups(x_rows, y_cols, t, slots):
+    """Control: consumers that skip the halo groups, the producer refilling
+    a halo's slot once it lands, give 2·a while the copies land in issue
+    order, but where a stored group refills a halo's slot and the halo
+    lands last, the consumers' wait on it meets the barrier a phase behind
+    and returns before the rows are there: wrong rows, or a release counted
+    in the wrong phase and a producer that waits for ever. The kernel's consumers wait on
+    and release every group (test_row_window_schedule_replays_to_2a)."""
+    a = np.random.default_rng(t).standard_normal((x_rows, y_cols)).astype(np.float32)
+    groups = cuda_probes.row_window_schedule(x_rows, t, 8, slots, 1)[0]
+    refilled = any(not groups[j - slots][4] and groups[j][4] for j in range(slots, len(groups)))
+    in_order, _ = _replay(a, t, 8, slots, 1, "in_order", skip_halo=True)
+    np.testing.assert_array_equal(in_order, 2.0 * a)
+    try:
+        halo_last, _ = _replay(a, t, 8, slots, 1, "halo_last", skip_halo=True)
+        wrong = not np.array_equal(halo_last, 2.0 * a)
+    except AssertionError:  # a release counted in the wrong phase: the producer waits for ever
+        wrong = True
+    assert wrong == refilled
+
+
+def test_row_window_ring_holds_a_window():
+    """Four groups of 8 rows of 1600 floats, each with its two barriers,
+    fill a block: exactly the t = 16 window; at Y = 4096 not even t = 8's."""
+    assert cuda_probes.row_window_slots(1600) == 4
+    assert 4 * (8 * 1600 * 4 + 16) <= cuda_probes.ROW_WINDOW_SMEM < 5 * (8 * 1600 * 4 + 16)
+    assert cuda_probes.row_window_slots(4096) == 1
+    assert cuda_probes.row_window_tile(256, 64) == 128  # 18 groups ≤ 112 slots
+
+
 def test_rowwin_check_prints_t_and_does_not_fit():
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

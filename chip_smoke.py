@@ -28,7 +28,8 @@ Phases, each printed as JSON lines:
              against its plain PyTorch version at the res=1600 shapes on
              seeded random inputs: at float32 every output within
              1e-5·max(1, |ref|max) (in fact 0.0), the fused kernels (the
-             CIP phases, SOR, confinement: BIT_EQUAL_F32) bit-equal; at bf16
+             CIP phases, SOR, confinement, the MAC dye phase: BIT_EQUAL_F32)
+             bit-equal; at bf16
              every variant (SOR: one and two iterations, with and without
              the limiter) and
              every pressure chain link (bf16→f32, f32→f32, f32→bf16,
@@ -70,7 +71,10 @@ Phases, each printed as JSON lines:
              add; no copy or convert kernel; exactly one fused kernel a CIP
              phase, SOR and confinement call (PROFILE_COUNTS: one SOR call a
              step runs both iterations), none of the launches they replaced,
-             and no standalone advection. A host's profiler may drop a
+             and no standalone advection. Then over two kk steps at float32
+             (KK_PROFILE_COUNTS): one fused launch a MAC dye phase call and
+             none of the two it replaced, B2's two launches, SOR's and
+             confinement's one. A host's profiler may drop a
              launch from a trace: a trace that holds only expected kernels
              but too few of them is taken again, up to PROFILE_TRACES in
              all, and the phase fails if none is whole (an empty trace
@@ -224,9 +228,8 @@ SWEEP_HEAD = {"chains": 8, "depth": 1024, "threads": 256}  # the fma_sweep row's
 TOY_SHAPES = ((32, 128), (8, 128), (2 * RES, RES))
 # The port's kernels as torch.profiler names them (phase 4, profile).
 PORT_KERNELS = ("cip_velocity_fused_kernel", "cip_dye_fused_kernel", "velocity_bc_kernel",
-                "dye_bc_kernel", "confinement_fused_kernel", "sor_fused_kernel",
-                "pressure_bc_kernel", "jacobi_sweep_kernel", "mac_velocity_update_kernel",
-                "mac_dye_update_kernel")
+                "confinement_fused_kernel", "sor_fused_kernel", "pressure_bc_kernel",
+                "jacobi_sweep_kernel", "mac_velocity_update_kernel", "mac_dye_fused_kernel")
 # Device kernels of two headline steps that the profile phase counts exactly:
 # one fused launch a CIP phase, SOR and confinement call (one SOR call a step,
 # both iterations), none of the launches the fused SOR and confinement
@@ -235,9 +238,16 @@ PROFILE_COUNTS = {"cip_velocity_fused_kernel": 2, "cip_dye_fused_kernel": 2,
                   "sor_fused_kernel": 2, "confinement_fused_kernel": 2, "advect_kernel": 0,
                   "sor_odd_kernel": 0, "sor_even_kernel": 0, "pressure_bc_kernel": 0,
                   "curl_kernel": 0, "confine_kernel": 0}
+# The same for two kk steps at res=1600: one fused launch a MAC dye phase
+# call, none of the two launches it replaced (the dye BC, the dye update);
+# the MAC velocity phase's two; one SOR and one confinement launch a step.
+KK_PROFILE_COUNTS = {"mac_dye_fused_kernel": 2, "dye_bc_kernel": 0, "mac_dye_update_kernel": 0,
+                     "velocity_bc_kernel": 2, "mac_velocity_update_kernel": 2,
+                     "sor_fused_kernel": 2, "confinement_fused_kernel": 2}
 # Kernels held to their plain versions bit for bit at float32 too (the others
 # within KERNEL_TOL, in fact 0.0): the fused ones.
-BIT_EQUAL_F32 = ("cip_velocity_phase", "cip_dye_phase", "sor_iteration", "confinement")
+BIT_EQUAL_F32 = ("cip_velocity_phase", "cip_dye_phase", "sor_iteration", "confinement",
+                 "mac_dye_phase")
 
 
 def _preset_path(n: int):
@@ -1072,10 +1082,10 @@ def _trace_two_steps(sim) -> list[tuple[str, float]]:
     return _base_names(prof)
 
 
-def _check_trace(timed, dtype: str) -> dict[str, int] | None:
-    """One trace of two headline steps (_trace_two_steps) against what they
-    launch: one fused kernel a CIP phase, SOR and confinement call
-    (PROFILE_COUNTS) and one PyTorch elementwise add a step (the step
+def _check_trace(timed, what: str, want: dict[str, int]) -> dict[str, int] | None:
+    """One trace of two steps (_trace_two_steps) against what they launch:
+    the port kernels of `want` exactly as often as it says (PROFILE_COUNTS,
+    KK_PROFILE_COUNTS) and one PyTorch elementwise add a step (the step
     counter), no copy or convert kernel. Returns the port kernels' counts;
     None where the trace holds only those kernels, none too often, but
     misses a launch (a profiler that dropped records, or traced nothing);
@@ -1086,40 +1096,44 @@ def _check_trace(timed, dtype: str) -> dict[str, int] | None:
     other = [n for n in names if n not in port]
     bad = [n for n in names if re.search(r"copy|convert|to_copy", n, re.IGNORECASE)]
     counts = {n: names.count(n) for n in sorted(set(names))}
-    emit({"phase": "profile", "dtype": dtype, "steps": 2, "kernels": counts,
+    emit({"phase": "profile", "run": what, "steps": 2, "kernels": counts,
           "device_us": device_us, "device_us_total": sum(device_us.values())})
     if bad or len(other) > 2 or len(set(other)) > 1 or any("elementwise" not in n for n in other):
-        raise AssertionError(f"profile[{dtype}]: kernels other than the port's and one add a "
+        raise AssertionError(f"profile[{what}]: kernels other than the port's and one add a "
                              f"step: {sorted(set(other))}; copy/convert: {sorted(set(bad))}")
-    fused = {k: sum(re.search(rf"\b{k}$", n) is not None for n in names) for k in PROFILE_COUNTS}
+    fused = {k: sum(re.search(rf"\b{k}$", n) is not None for n in names) for k in want}
     unexpected = [n for n in set(port)
-                  if not any(re.search(rf"\b{k}$", n) and c for k, c in PROFILE_COUNTS.items())]
-    if unexpected or any(fused[k] > c for k, c in PROFILE_COUNTS.items()):
-        raise AssertionError(f"profile[{dtype}]: {fused}, expected {PROFILE_COUNTS}; other port "
+                  if not any(re.search(rf"\b{k}$", n) and c for k, c in want.items())]
+    if unexpected or any(fused[k] > c for k, c in want.items()):
+        raise AssertionError(f"profile[{what}]: {fused}, expected {want}; other port "
                              f"kernels: {sorted(unexpected)}")
-    if fused != PROFILE_COUNTS or len(other) < 2:
+    if fused != want or len(other) < 2:
         return None
     return {n: names.count(n) for n in set(port)}
 
 
 def check_profile(dev) -> None:
-    """torch.profiler over two headline steps at each dtype (after two traced
-    as its warm-up), held to _check_trace, the same port kernels at both
-    dtypes. A host's profiler may drop a launch from a trace: a trace that
-    only misses launches is taken again, up to PROFILE_TRACES in all, and
-    the phase fails if none is whole, an empty trace included."""
+    """torch.profiler over two headline steps at each dtype and two kk steps
+    at float32 (after two traced as its warm-up), held to _check_trace, the
+    same port kernels in the headline at both dtypes. A host's profiler may
+    drop a launch from a trace: a trace that only misses launches is taken
+    again, up to PROFILE_TRACES in all, and the phase fails if none is
+    whole, an empty trace included."""
     seen = {}
-    for dtype in ("float32", "bfloat16"):
-        sim = FluidSimulator.create(bc_num=SCENE, resolution=RES, device="cuda", dtype=dtype)
+    runs = (("float32", {"dtype": "float32"}, PROFILE_COUNTS),
+            ("bfloat16", {"dtype": "bfloat16"}, PROFILE_COUNTS),
+            ("kk", {"scheme": "kk"}, KK_PROFILE_COUNTS))
+    for what, kw, want in runs:
+        sim = FluidSimulator.create(bc_num=SCENE, resolution=RES, device="cuda", **kw)
         sim.step(2)
         torch.cuda.synchronize()
         for _ in range(PROFILE_TRACES):
-            seen[dtype] = _check_trace(_trace_two_steps(sim), dtype)
-            if seen[dtype] is not None:
+            seen[what] = _check_trace(_trace_two_steps(sim), what, want)
+            if seen[what] is not None:
                 break
         else:
-            raise AssertionError(f"profile[{dtype}]: each of {PROFILE_TRACES} traces missed a "
-                                 f"launch of two headline steps (or held none)")
+            raise AssertionError(f"profile[{what}]: each of {PROFILE_TRACES} traces missed a "
+                                 f"launch of two steps (or held none)")
         del sim
     if seen["float32"] != seen["bfloat16"]:
         raise AssertionError(f"profile: bf16 kernels {seen['bfloat16']} differ from float32 "

@@ -1,19 +1,19 @@
 // Velocity and dye boundary conditions: the per-cell rules, shared by the
 // CIP phases (cip_phases.cu) and the MAC phases (mac_phases.cu), and the
-// MAC phases' BC kernels.
+// MAC velocity phase's BC kernel.
 //
 // The per-cell rules (velocity_bc_cell, dye_bc_cell) read their operands
-// through cell accessors (common.cuh), so the BC kernels below and the
-// fused CIP phase kernels evaluate the same lines.
+// through cell accessors (common.cuh), so the BC kernel below and the
+// fused phase kernels evaluate the same lines.
 //
-// Each kernel writes the BC'd field out of place, one thread per cell and
-// blockIdx.z the channel: the velocity rules read the pre-BC field at
-// other cells (ghost mirrors two cells away, outflow one cell upstream),
-// so an in-place update would race. The field and the scene's constants
-// are of storage type S; the result goes to a float plane, which the next
-// launch reads, and (st2) to its rounded copy where it is a phase output.
+// The kernel writes the BC'd velocity out of place, one thread per cell and
+// blockIdx.z the channel: the rules read the pre-BC field at other cells
+// (ghost mirrors two cells away, outflow one cell upstream), so an in-place
+// update would race. The field and the scene's constants are of storage
+// type S; the result goes to a float plane, which the next launch reads,
+// and (st2) to its rounded copy where it is a phase output.
 // Internal linkage: every source that includes this header gets its own
-// copy of the kernels.
+// copy of the kernel.
 #pragma once
 
 #include "common.cuh"
@@ -64,19 +64,6 @@ __global__ void velocity_bc_kernel(const S* __restrict__ v, const int8_t* __rest
   const float r = velocity_bc_cell(pre, Plane<S>{bc_const + c * g.plane(), g}, vbc_code[k], c, i,
                                    j);
   st2(out, out_s, c * g.plane() + k, r);
-}
-
-// Dye BC, one channel a blockIdx.z.
-template <typename S>
-__global__ void dye_bc_kernel(const S* __restrict__ dye, const int8_t* __restrict__ inflow,
-                              const S* __restrict__ bc_dye, float* __restrict__ out,
-                              S* __restrict__ out_s, Grid g) {
-  int i, j;
-  if (!cell_of(g, i, j)) return;
-  const long long k = (long long)i * g.Y + j;
-  const long long off = blockIdx.z * g.plane();
-  st2(out, out_s, off + k,
-      dye_bc_cell(Plane<S>{dye + off, g}, Plane<S>{bc_dye + off, g}, inflow[k], i, j));
 }
 
 }  // namespace

@@ -29,16 +29,23 @@
 //   both exact.
 //
 // row_copy_kernel<T, kMode> — the three row-window copies of
-//   scripts/bf16_dma_probe.py, each for T = float or bf16, one block:
-//     tail     rows [8, 8+t) of x → shared (cp.async, 16 bytes a copy), out
+//   scripts/bf16_dma_probe.py, each for T = float or bf16:
+//     tail     rows [8, 8+t) of x → shared (cp.async, 16 bytes a copy), out;
+//              kTailRows rows a block, the blocks spread over the card, each
+//              storing whole float4s (at bf16 a 16-byte chunk of 8 values
+//              widens to two)
 //     head     rows [0, t+16) → shared; rows [8, 24) copied to rows [0, 16)
-//              within shared memory; rows [0, t) out
+//              within shared memory; rows [0, t) out (one block)
 //     realign  rows [0, t+16) → shared; win[8:] = win[:t+8] (all reads, a
 //              barrier, then the writes: the ranges overlap); rows [0, t) out
+//              (one block)
 //   out is (t, cols) float. The TPU question was whether sub-tile row
 //   offsets of bf16 copy at all; here the question is whether 16-byte
 //   asynchronous copies at an 8-row offset of a bf16 plane land intact.
-//   Bound: bytes (a few KB; latency-bound in practice).
+//   Bound: bytes (a few KB; latency-bound in practice). The head and
+//   realign modes shift rows within one window, so they keep one block; the
+//   tail copy has no such shift, and one block storing t·cols scalars from
+//   one SM lost to out.copy_, which spreads the copy over many blocks.
 #include "common.cuh"
 
 using f2d::bf16;
@@ -47,6 +54,8 @@ using bf162 = __nv_bfloat162;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTailRows = 1;      // output rows of a tail block
+constexpr int kTailThreads = 64;  // threads of a tail block: a 256-column float row's chunks
 enum Mode { kFma = 0, kPoly = 1, kSelect = 2, kCipmix = 3 };
 
 __device__ __forceinline__ float fma_(float a, float b, float c) { return __fmaf_rn(a, b, c); }
@@ -113,7 +122,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 
 // `rows` rows of `cols` elements from row `row0` of x into win, 16 bytes a
-// copy, then wait for them.
+// copy, chunk c by thread c mod blockDim.x, then wait for this thread's
+// copies; the block's, after a __syncthreads.
 template <typename T>
 __device__ void fetch_rows(const T* __restrict__ x, T* win, int row0, int rows, int cols) {
   constexpr int kPer = 16 / sizeof(T);
@@ -121,24 +131,46 @@ __device__ void fetch_rows(const T* __restrict__ x, T* win, int row0, int rows, 
   const T* src = x + (long long)row0 * cols;
   for (int c = threadIdx.x; c < chunks; c += blockDim.x) cp_async16(win + c * kPer, src + c * kPer);
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
 }
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
 
+// n elements of win (n·sizeof(T) a multiple of 16) widened to float and
+// stored to out as whole float4s, chunk c of win by thread c mod blockDim.x:
+// the chunks this thread copied in with fetch_rows, so no barrier.
+template <typename T>
+__device__ void store_chunks(const T* win, float* __restrict__ out, int n) {
+  constexpr int kPer = 16 / sizeof(T);
+  for (int c = threadIdx.x; c < n / kPer; c += blockDim.x) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(win + c * kPer);
+    const T* e = reinterpret_cast<const T*>(&raw);
+    float4* o = reinterpret_cast<float4*>(out + c * kPer);
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) {
+      o[q] = make_float4(widen(e[4 * q]), widen(e[4 * q + 1]), widen(e[4 * q + 2]),
+                         widen(e[4 * q + 3]));
+    }
+  }
+}
+
 enum Copy { kTail = 0, kHead = 1, kRealign = 2 };
 
-// One block; dynamic shared memory holds (t + 16) rows.
+// tail: rows [kTailRows·blockIdx.x, +kTailRows) of the output a block, its
+// dynamic shared memory holding those rows; head, realign: one block, its
+// dynamic shared memory holding (t + 16) rows.
 template <typename T, int kMode>
 __global__ void row_copy_kernel(const T* __restrict__ x, float* __restrict__ out, int cols,
                                 int t) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* win = reinterpret_cast<T*>(smem);
   if constexpr (kMode == kTail) {
-    fetch_rows(x, win, 8, t, cols);
+    const int r0 = kTailRows * blockIdx.x, rows = min(kTailRows, t - r0);
+    fetch_rows(x, win, 8 + r0, rows, cols);
+    store_chunks(win, out + (long long)r0 * cols, rows * cols);
   } else {
     fetch_rows(x, win, 0, t + 16, cols);
+    __syncthreads();
     const int n = (kMode == kHead ? 16 : t + 8) * cols;
     const int dst = kMode == kHead ? 0 : 8 * cols;
     const int src = kMode == kHead ? 8 * cols : 0;
@@ -151,17 +183,20 @@ __global__ void row_copy_kernel(const T* __restrict__ x, float* __restrict__ out
     m = 0;
     for (int e = threadIdx.x; e < n; e += blockDim.x) win[dst + e] = buf[m++];
     __syncthreads();
+    for (int e = threadIdx.x; e < t * cols; e += blockDim.x) out[e] = widen(win[e]);
   }
-  for (int e = threadIdx.x; e < t * cols; e += blockDim.x) out[e] = widen(win[e]);
 }
 
 template <typename T>
 int row_copy(const T* x, float* out, int cols, int t, int mode, cudaStream_t s) {
-  const size_t smem = (size_t)(t + 16) * cols * sizeof(T);
+  const size_t window = (size_t)(t + 16) * cols * sizeof(T);
   switch (mode) {
-    case kTail: row_copy_kernel<T, kTail><<<1, kThreads, smem, s>>>(x, out, cols, t); break;
-    case kHead: row_copy_kernel<T, kHead><<<1, kThreads, smem, s>>>(x, out, cols, t); break;
-    case kRealign: row_copy_kernel<T, kRealign><<<1, kThreads, smem, s>>>(x, out, cols, t); break;
+    case kTail:
+      row_copy_kernel<T, kTail><<<(t + kTailRows - 1) / kTailRows, kTailThreads,
+                                  (size_t)kTailRows * cols * sizeof(T), s>>>(x, out, cols, t);
+      break;
+    case kHead: row_copy_kernel<T, kHead><<<1, kThreads, window, s>>>(x, out, cols, t); break;
+    case kRealign: row_copy_kernel<T, kRealign><<<1, kThreads, window, s>>>(x, out, cols, t); break;
     default: return (int)cudaErrorInvalidValue;
   }
   F2D_CHECK_LAUNCH();

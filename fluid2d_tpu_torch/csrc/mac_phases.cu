@@ -7,55 +7,81 @@
 // for operation, rounded as PyTorch rounds it on the card (common.cuh):
 // every difference is divided by its grid constant separately, as the jnp
 // stencils do, not with 1/dx factored out of the sums as the Pallas window
-// helpers do. Two launches per phase:
-//   1. BC      state -> f_bc  (the new alternate buffer, an output; bc.cuh)
-//   2. update  f_bc  -> f_cur at fluid cells, the old alternate elsewhere
-//      velocity: f_bc + dt·((−adv(f_bc) − ∇p) + ∇²f_bc/Re)
-//      dye:      f_bc − dt·adv(f_bc) by the limited velocity, then the
-//                [0, 1] clamp (fminf/fmaxf: NaN → 0) on every cell
+// helpers do.
+//
+// Velocity phase, two launches:
+//   1. BC      state -> v_bc  (the new alternate buffer, an output; bc.cuh)
+//   2. update  v_bc  -> v_cur at fluid cells, the old alternate elsewhere:
+//              v_bc + dt·((−adv(v_bc) − ∇p) + ∇²v_bc/Re)
 // The BC'd field is in device memory before the update reads it, so the
 // KK stencil's ±2 reads clamp at the grid ends exactly as the jnp path's
 // shifts of the computed field do (what the Pallas kernels rebuild with
-// _reclamp).
+// _reclamp). It is a float plane: for S = float the returned alternate
+// itself; for S = bf16 a scratch plane, beside which the BC launch writes
+// the rounded alternate.
+//
+// Dye phase, one launch (mac_dye_fused_kernel), as the fused CIP dye phase
+// (cip_phases.cu, tile.cuh): a block owns a TX × TY tile of output cells of
+// every dye channel. It copies each channel's dye into a float window one
+// cell (upwind) or two (KK) wider than the tile on every side, and one flag
+// byte a cell (inflow, fluid), then applies the inflow BC in place at each
+// entry's clamped cell (dye_bc_cell; the scene's colours read from device
+// memory at the few inflow cells), so an entry past the grid holds the BC'd
+// value at the clamped cell: what the two-launch design read through Grid::at
+// and what the Pallas kernels rebuild with _reclamp. The update then runs on
+// the tile, four cells a thread along Y: d_bc − dt·adv(d_bc) by the limited
+// velocity (read at the tile's cells only) at fluid cells, the old alternate
+// (read only there) elsewhere, the [0, 1] clamp (fminf/fmaxf: NaN → 0), and
+// two stores: d_bc (the new alternate, unclamped) and the clamped dye. The
+// velocity and the masks are read once a tile for all channels. Bound: bytes
+// (the dye, the velocity and two int8 planes read, two dye planes written;
+// ~15–30 flops a cell and channel); nothing but the outputs is written.
 //
 // Storage type S (common.cuh): the state's planes, the scene's constants and
-// both outputs are S. The BC'd field, which the update launch reads, is a
-// float plane: for S = float the returned alternate itself; for S = bf16 a
-// scratch plane, beside which the BC launch writes the rounded alternate.
+// every output are S; each output is rounded once, at its store.
 #include "bc.cuh"
 #include "common.cuh"
+#include "tile.cuh"
 
 using f2d::bf16;
 using f2d::Grid;
+using f2d::kThreads;
+using f2d::kV;
 using f2d::ld;
+using f2d::Window;
 
 namespace {
 
-// The advection term (v·∇)φ at cell (i, j) of one channel plane `phi`,
-// carried by (u, w) at that cell (fluid2d_tpu/ops/advection.py). inv_adv
-// is 1/dx (upwind) or 1/(6·dx) (KK). A NaN velocity compares false: upwind
-// takes the backward difference, KK the positive-velocity coefficients.
-template <bool kKK>
-__device__ __forceinline__ float advect_term(const float* __restrict__ phi, const Grid& g, int i,
-                                             int j, float u, float w, float inv_adv) {
-  const float f0 = phi[(long long)i * g.Y + j];
+// Output tile of a fused dye block, rows × columns.
+constexpr int kTileX = 32, kTileY = 32;
+// A fused dye block takes every channel of its tile (the velocity and the
+// masks read once a tile); false: one channel a blockIdx.z.
+constexpr bool kAllChannels = true;
+
+// The advection term (v·∇)φ at cell (i, j) of one channel, read through the
+// cell accessor `phi` (common.cuh), carried by (u, w) at that cell
+// (fluid2d_tpu/ops/advection.py). inv_adv is 1/dx (upwind) or 1/(6·dx)
+// (KK). A NaN velocity compares false: upwind takes the backward
+// difference, KK the positive-velocity coefficients.
+template <bool kKK, typename A>
+__device__ __forceinline__ float advect_term(const A& phi, int i, int j, float u, float w,
+                                             float inv_adv) {
+  const float f0 = phi(i, j);
   if constexpr (kKK) {
-    const float p2x = phi[g.at(i + 2, j)], p1x = phi[g.at(i + 1, j)];
-    const float m1x = phi[g.at(i - 1, j)], m2x = phi[g.at(i - 2, j)];
+    const float p2x = phi(i + 2, j), p1x = phi(i + 1, j);
+    const float m1x = phi(i - 1, j), m2x = phi(i - 2, j);
     const float sx = u < 0.0f ? -2.0f * p2x + 10.0f * p1x - 9.0f * f0 + 2.0f * m1x - 1.0f * m2x
                               : 1.0f * p2x - 2.0f * p1x + 9.0f * f0 - 10.0f * m1x + 2.0f * m2x;
-    const float p2y = phi[g.at(i, j + 2)], p1y = phi[g.at(i, j + 1)];
-    const float m1y = phi[g.at(i, j - 1)], m2y = phi[g.at(i, j - 2)];
+    const float p2y = phi(i, j + 2), p1y = phi(i, j + 1);
+    const float m1y = phi(i, j - 1), m2y = phi(i, j - 2);
     const float sy = w < 0.0f ? -2.0f * p2y + 10.0f * p1y - 9.0f * f0 + 2.0f * m1y - 1.0f * m2y
                               : 1.0f * p2y - 2.0f * p1y + 9.0f * f0 - 10.0f * m1y + 2.0f * m2y;
     const float a = sx * inv_adv;
     const float b = sy * inv_adv;
     return u * a + w * b;
   }
-  const float dfx = u < 0.0f ? (phi[g.at(i + 1, j)] - f0) * inv_adv
-                             : (f0 - phi[g.at(i - 1, j)]) * inv_adv;
-  const float dfy = w < 0.0f ? (phi[g.at(i, j + 1)] - f0) * inv_adv
-                             : (f0 - phi[g.at(i, j - 1)]) * inv_adv;
+  const float dfx = u < 0.0f ? (phi(i + 1, j) - f0) * inv_adv : (f0 - phi(i - 1, j)) * inv_adv;
+  const float dfy = w < 0.0f ? (phi(i, j + 1) - f0) * inv_adv : (f0 - phi(i, j - 1)) * inv_adv;
   const float ax = u * dfx;
   const float ay = w * dfy;
   return ax + ay;
@@ -83,36 +109,15 @@ __global__ void mac_velocity_update_kernel(const float* __restrict__ v_bc,
     return;
   }
   const float* f = v_bc + ch * g.plane();
+  const auto fa = [f, &g](int a, int b) { return f[g.at(a, b)]; };
   const float f0 = f[k];
-  const float adv = advect_term<kKK>(f, g, i, j, v_bc[k], v_bc[g.plane() + k], c.inv_adv);
+  const float adv = advect_term<kKK>(fa, i, j, v_bc[k], v_bc[g.plane() + k], c.inv_adv);
   const float gp = ch == 0 ? 0.5f * (ld(p, g.at(i + 1, j)) - ld(p, g.at(i - 1, j))) * c.inv_dx
                            : 0.5f * (ld(p, g.at(i, j + 1)) - ld(p, g.at(i, j - 1))) * c.inv_dx;
   const float lap = (f[g.at(i + 1, j)] - 2.0f * f0 + f[g.at(i - 1, j)]) * c.inv_dx2
                     + (f[g.at(i, j + 1)] - 2.0f * f0 + f[g.at(i, j - 1)]) * c.inv_dx2;
   const float rhs = -adv - gp + lap * c.inv_re;
   f2d::st(out, kc, f0 + c.dt * rhs);
-}
-
-// f_bc − dt·(vel·∇)f_bc at fluid cells (fs/solver.py:149-161), the old
-// alternate elsewhere, then the [0, 1] clamp; blockIdx.z is the channel.
-template <bool kKK, typename S>
-__global__ void mac_dye_update_kernel(const float* __restrict__ d_bc,
-                                      const S* __restrict__ dye_alt,
-                                      const S* __restrict__ vel,
-                                      const int8_t* __restrict__ fluid, S* __restrict__ out,
-                                      Grid g, float dt, float inv_adv) {
-  int i, j;
-  if (!f2d::cell_of(g, i, j)) return;
-  const long long k = (long long)i * g.Y + j;
-  const long long kc = blockIdx.z * g.plane() + k;
-  float r;
-  if (fluid[k] != 0) {
-    const float* f = d_bc + blockIdx.z * g.plane();
-    r = f[k] - dt * advect_term<kKK>(f, g, i, j, ld(vel, k), ld(vel, g.plane() + k), inv_adv);
-  } else {
-    r = ld(dye_alt, kc);
-  }
-  f2d::st(out, kc, fminf(fmaxf(r, 0.0f), 1.0f));
 }
 
 // The velocity phase; v_bc32 is the float BC'd field (v_bc itself for S = float).
@@ -134,21 +139,144 @@ int mac_velocity_phase(const S* v, const S* p, const S* v_alt, const S* bc_const
   return 0;
 }
 
-// The dye phase; d_bc32 is the float BC'd dye (d_bc itself for S = float).
-template <typename S>
-int mac_dye_phase(const S* dye, const S* dye_alt, const S* vel, const S* bc_dye,
-                  const int8_t* inflow8, const int8_t* fluid8, S* d_out, S* d_bc, float* d_bc32,
-                  Grid g, int C, int kk, float dt, float inv_adv, cudaStream_t s) {
-  const dim3 blocks = f2d::launch_blocks(g.X, g.Y, C), threads = f2d::launch_threads();
-  f2d::dye_bc_kernel<S><<<blocks, threads, 0, s>>>(dye, inflow8, bc_dye, d_bc32, d_bc, g);
-  F2D_CHECK_LAUNCH();
-  if (kk) {
-    mac_dye_update_kernel<true, S><<<blocks, threads, 0, s>>>(d_bc32, dye_alt, vel, fluid8, d_out,
-                                                              g, dt, inv_adv);
-  } else {
-    mac_dye_update_kernel<false, S><<<blocks, threads, 0, s>>>(d_bc32, dye_alt, vel, fluid8,
-                                                               d_out, g, dt, inv_adv);
+// A cell's flag byte in the fused dye kernel's window.
+constexpr unsigned kInflow = 1u, kFluid = 2u;
+
+struct DyeFlags {  // fill_flags' packing of the (inflow, fluid) bytes
+  __device__ __forceinline__ unsigned operator()(unsigned inflow, unsigned fluid) const {
+    return (inflow != 0 ? kInflow : 0u) | (fluid != 0 ? kFluid : 0u);
   }
+};
+
+// The windows of a TX × TY tile with a halo of H cells (1 upwind, 2 KK): R
+// rows from the tile's first row − H, NC chunks a row from its first column
+// − kV (pitch P). A channel's dye window holds kFloats floats; the flag
+// window follows the last channel's.
+template <bool kKK, int TX, int TY>
+struct MacDyeTile {
+  static_assert(TY % kV == 0, "a tile's width is a whole number of chunks");
+  static constexpr int H = kKK ? 2 : 1;
+  static constexpr int NC = TY / kV + 2, P = NC * kV, R = TX + 2 * H;
+  static constexpr int kFloats = R * P;
+  static constexpr int bytes(int channels) { return 4 * channels * kFloats + R * P; }
+};
+
+// kV cells of plane p from cell k on, stored as S: one aligned vector store
+// when `vec` holds (every chunk then lies in the grid), else the first n one
+// by one.
+template <typename S>
+__device__ __forceinline__ void st_chunk(S* p, long long k, const float (&v)[kV], int n,
+                                         bool vec) {
+  if (vec) {
+    if constexpr (f2d::kIsBf16<S>) {
+      const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(v[0]),
+                                                   __float2bfloat16_rn(v[1]));
+      const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(v[2]),
+                                                   __float2bfloat16_rn(v[3]));
+      *reinterpret_cast<uint2*>(p + k) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                                    *reinterpret_cast<const unsigned*>(&hi));
+    } else {
+      *reinterpret_cast<float4*>(p + k) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < kV; ++t) {
+    if (t < n) f2d::st(p, k + t, v[t]);
+  }
+}
+
+// The dye phase on one TX × TY tile: every channel (kAllChannels), or
+// channel blockIdx.z. Dye fields (C, X, Y), vel (2, X, Y), the masks (X, Y)
+// int8; vec: every plane allows aligned chunk loads and stores.
+template <typename S, bool kKK, int TX, int TY>
+__global__ void __launch_bounds__(kThreads) mac_dye_fused_kernel(
+    const S* __restrict__ dye, const S* __restrict__ dye_alt, const S* __restrict__ vel,
+    const S* __restrict__ bc_dye, const int8_t* __restrict__ inflow8,
+    const int8_t* __restrict__ fluid8, S* __restrict__ d_out, S* __restrict__ d_bc, Grid g,
+    int C, float dt, float inv_adv, int vec) {
+  using T = MacDyeTile<kKK, TX, TY>;
+  constexpr int H = T::H, NC = T::NC, P = T::P, R = T::R;
+  extern __shared__ __align__(16) float smem[];
+  const int first = kAllChannels ? 0 : blockIdx.z, channels = kAllChannels ? C : 1;
+  const int ti = blockIdx.y * TX, tj = blockIdx.x * TY, c0 = tj - kV;
+  const long long plane = g.plane();
+  const Window<P, uint8_t> fl{reinterpret_cast<uint8_t*>(smem + channels * T::kFloats), ti - H,
+                              c0};
+
+  // 0. The tile's operands: each channel's dye and the flags on the tile + H.
+  for (int c = 0; c < channels; ++c) {
+    f2d::fill<R, NC>(smem + c * T::kFloats, dye + (first + c) * plane, ti - H, c0, g, vec);
+  }
+  f2d::fill_flags<R, NC>(fl.s, ti - H, c0, g, vec, DyeFlags{}, inflow8, fluid8);
+  f2d::wait_fills();
+
+  // 1. Inflow BC on the tile + H, in place, at each entry's clamped cell.
+  f2d::for_window<R, TY + 2 * H>(ti - H, tj - H, [&](int i0, int j0) {
+    const int i = g.clamp_i(i0), j = g.clamp_j(j0);
+    const unsigned inflow = fl(i, j) & kInflow;
+    if (inflow == 0) return;  // the BC keeps the dye
+    const int e = fl.idx(i0, j0);
+    for (int c = 0; c < channels; ++c) {
+      float* const s = smem + c * T::kFloats;
+      const auto pre = [&](int, int) { return s[e]; };
+      s[e] = f2d::dye_bc_cell(pre, f2d::Plane<S>{bc_dye + (first + c) * plane, g}, inflow, i, j);
+    }
+  });
+  __syncthreads();
+
+  // 2. The update on the tile, kV cells a thread along Y (one cell a thread,
+  //    which reads the windows without bank conflicts, was slower: PERF.md
+  //    §6); the velocity read at the tile's cells once for every channel and
+  //    widened at each use, the old alternate only at the non-fluid cells;
+  //    two stores a channel.
+  constexpr int kRowChunks = TY / kV;
+  for (int it = threadIdx.x; it < TX * kRowChunks; it += kThreads) {
+    const int i = ti + it / kRowChunks, j = tj + kV * (it % kRowChunks);
+    if (i >= g.X || j >= g.Y) continue;
+    const int n = min(kV, g.Y - j);
+    const long long k = (long long)i * g.Y + j;
+    const f2d::Chunk<S> uc = f2d::load_chunk(vel, i, j, g, vec);
+    const f2d::Chunk<S> wc = f2d::load_chunk(vel + plane, i, j, g, vec);
+    const S* const ue = reinterpret_cast<const S*>(&uc);
+    const S* const we = reinterpret_cast<const S*>(&wc);
+    for (int c = 0; c < channels; ++c) {
+      const Window<P> f{smem + c * T::kFloats, ti - H, c0};
+      const long long off = (first + c) * plane + k;
+      float bc[kV], out[kV];
+#pragma unroll
+      for (int t = 0; t < kV; ++t) {
+        bc[t] = f(i, j + t);
+        float r = 0.0f;
+        if (t < n) {
+          r = (fl(i, j + t) & kFluid) != 0
+                  ? bc[t] - dt * advect_term<kKK>(f, i, j + t, ld(ue, t), ld(we, t), inv_adv)
+                  : f2d::ldg(dye_alt, off + t);
+        }
+        out[t] = fminf(fmaxf(r, 0.0f), 1.0f);
+      }
+      st_chunk(d_bc, off, bc, n, vec);
+      st_chunk(d_out, off, out, n, vec);
+    }
+  }
+}
+
+template <typename S, bool kKK>
+int mac_dye_phase(const void* const* in, const int8_t* inflow8, const int8_t* fluid8,
+                  void* d_out, void* d_bc, Grid g, int C, float dt, float inv_adv,
+                  cudaStream_t s) {
+  constexpr auto kernel = mac_dye_fused_kernel<S, kKK, kTileX, kTileY>;
+  const int bytes = MacDyeTile<kKK, kTileX, kTileY>::bytes(kAllChannels ? C : 1);
+  if (bytes > 48 * 1024) {  // the default limit of dynamic shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto i = [in](int k) { return static_cast<const S*>(in[k]); };
+  const void* planes[] = {in[0], in[1], in[2], in[3], inflow8, fluid8, d_out, d_bc};
+  kernel<<<f2d::tile_blocks(g, kTileX, kTileY, kAllChannels ? 1 : C), kThreads, bytes, s>>>(
+      i(0), i(1), i(2), i(3), inflow8, fluid8, static_cast<S*>(d_out), static_cast<S*>(d_bc), g,
+      C, dt, inv_adv, f2d::chunk_loads(g, planes, 8));
   F2D_CHECK_LAUNCH();
   return 0;
 }
@@ -179,22 +307,21 @@ extern "C" int f2d_mac_velocity_phase_bf16(const bf16* v, const bf16* p, const b
                                   static_cast<cudaStream_t>(stream));
 }
 
-// dye, dye_alt, bc_dye, d_out, d_bc: (C, X, Y); vel: (2, X, Y), the limited
-// velocity. d_bc is the BC'd input dye, the new alternate (unclamped).
-extern "C" int f2d_mac_dye_phase(const float* dye, const float* dye_alt, const float* vel,
-                                 const float* bc_dye, const int8_t* inflow8,
-                                 const int8_t* fluid8, float* d_out, float* d_bc, int X, int Y,
-                                 int C, int kk, float dt, float inv_adv, void* stream) {
-  return mac_dye_phase<float>(dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, d_bc,
-                              Grid{X, Y}, C, kk, dt, inv_adv, static_cast<cudaStream_t>(stream));
-}
-
-// The same with bf16 fields; d_bc32: (C, X, Y) float scratch.
-extern "C" int f2d_mac_dye_phase_bf16(const bf16* dye, const bf16* dye_alt, const bf16* vel,
-                                      const bf16* bc_dye, const int8_t* inflow8,
-                                      const int8_t* fluid8, bf16* d_out, bf16* d_bc,
-                                      float* d_bc32, int X, int Y, int C, int kk, float dt,
-                                      float inv_adv, void* stream) {
-  return mac_dye_phase<bf16>(dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, d_bc32,
-                             Grid{X, Y}, C, kk, dt, inv_adv, static_cast<cudaStream_t>(stream));
+// The dye phase. dye, dye_alt, bc_dye, d_out, d_bc: (C, X, Y); vel (2, X, Y),
+// the limited velocity; the masks (X, Y) int8. d_bc is the BC'd input dye,
+// the new alternate (unclamped). kk selects the scheme (0 upwind); every
+// field is stored as bf16 when bf16_storage != 0, else as float.
+extern "C" int f2d_mac_dye_phase(const void* dye, const void* dye_alt, const void* vel,
+                                 const void* bc_dye, const int8_t* inflow8, const int8_t* fluid8,
+                                 void* d_out, void* d_bc, int X, int Y, int C, int kk,
+                                 int bf16_storage, float dt, float inv_adv, void* stream) {
+  const void* in[] = {dye, dye_alt, vel, bc_dye};
+  const Grid g{X, Y};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_storage) {
+    return kk ? mac_dye_phase<bf16, true>(in, inflow8, fluid8, d_out, d_bc, g, C, dt, inv_adv, s)
+              : mac_dye_phase<bf16, false>(in, inflow8, fluid8, d_out, d_bc, g, C, dt, inv_adv, s);
+  }
+  return kk ? mac_dye_phase<float, true>(in, inflow8, fluid8, d_out, d_bc, g, C, dt, inv_adv, s)
+            : mac_dye_phase<float, false>(in, inflow8, fluid8, d_out, d_bc, g, C, dt, inv_adv, s);
 }

@@ -64,10 +64,9 @@ _SIGNATURES = {
     # X, Y, kk, dt, 1/dx, 1/dx or 1/(6dx), 1/dx², 1/re, stream
     "f2d_mac_velocity_phase": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_P],
     "f2d_mac_velocity_phase_bf16": [_P] * 9 + [_I] * 3 + [_F] * 5 + [_P],
-    # dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc (bf16: + d_bc32),
-    # X, Y, C, kk, dt, 1/dx or 1/(6dx), stream
-    "f2d_mac_dye_phase": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
-    "f2d_mac_dye_phase_bf16": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
+    # dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, X, Y, C, kk,
+    # bf16 storage, dt, 1/dx or 1/(6dx), stream
+    "f2d_mac_dye_phase": [_P] * 8 + [_I] * 5 + [_F] * 2 + [_P],
     # x, o, n, stream
     "f2d_copy_add1": [_P, _P, _L, _P],
     # plane table, n_f32, n_i8, n_out, cells, stream

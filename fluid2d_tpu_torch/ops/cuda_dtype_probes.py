@@ -25,7 +25,11 @@ Source notes (``csrc/dtype_probes.cu`` says more beside each kernel).
 ``row_copy_cuda`` (C5b)
   Replaces ``scripts/bf16_dma_probe.py``: three row-window copies (tail,
   head, realign) of a float32 or bf16 plane through shared memory with
-  16-byte ``cp.async`` copies; bit-equal to the plain slices.
+  16-byte ``cp.async`` copies; bit-equal to the plain slices. The head and
+  realign copies shift rows within one window, one block; the tail copy
+  takes one output row a block, stored as whole ``float4``s, so its rows
+  move on many SMs at once (one block had stored every scalar from one SM,
+  slower than ``out.copy_``).
 
 Each wrapper takes CPU tensors to its plain version and launches its
 kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
@@ -173,8 +177,10 @@ def row_copy_cuda(x: torch.Tensor, mode: str, t: int = 16) -> torch.Tensor:
     if ptr % 16 or row_bytes % 16:
         msg = "row_copy_cuda: cp.async needs 16-byte aligned rows (the base and cols·itemsize)"
         raise ValueError(msg)
-    # (t + 16) rows in shared memory; a thread moves at most 32 elements.
-    if rows < t + 16 or (t + 8) * cols > 32 * 256 or (t + 16) * row_bytes > 48 * 1024:
+    # (t + 16) rows in shared memory, of which head reads rows [8, 24); a
+    # thread moves at most 32 elements.
+    if (t < (8 if mode == "head" else 1) or rows < t + 16 or (t + 8) * cols > 32 * 256
+            or (t + 16) * row_bytes > 48 * 1024):
         msg = f"row_copy_cuda: t={t}, cols={cols} outside the one-block window"
         raise ValueError(msg)
     out = torch.empty((t, cols), dtype=torch.float32, device=dev)

@@ -55,28 +55,34 @@ Source notes.
   momentum update at fluid cells reading the BC'd field with clamped
   indices. Bound: bytes — reads v, v_alt, bc_const, p and two int8 planes,
   writes two (2, X, Y) outputs, ~40 (upwind) to ~60 (KK) flops per cell.
+  What its simple design does about the bound: nothing yet. One thread per
+  cell, ``threadIdx.x`` along the contiguous Y axis (coalesced), neighbours
+  read from global memory with clamp-to-edge index math, the BC'd field
+  written to device memory and read back by the second launch.
 
 ``mac_dye_phase_cuda``
-  Replaces ``pallas_phases.py:mac_dye_phase_pallas``. Same two launches on
-  the 3 dye channels: inflow BC (the new alternate), then upwind or KK
-  advection by the limited velocity at fluid cells and the [0, 1] clamp.
-  Bound: bytes, ~15–30 flops per cell and channel.
-
-What the MAC phases' simple design does about the bound: nothing yet.
-One thread per cell, ``threadIdx.x`` along the contiguous Y axis
-(coalesced), neighbours read from global memory with clamp-to-edge index
-math, the BC'd field written to device memory and read back by the next
-launch.
+  Replaces ``pallas_phases.py:mac_dye_phase_pallas``. Kernel
+  ``csrc/mac_phases.cu`` ``mac_dye_fused_kernel``: one launch; a block
+  copies every dye channel of a 32×32 tile + 1 (upwind) or + 2 (KK) into
+  float windows, applies the inflow BC in place at each entry's clamped
+  cell, then advects by the limited velocity at fluid cells (the velocity
+  read at the tile's cells, once for every channel), takes the old
+  alternate elsewhere and clamps to [0, 1]. Bound: bytes, ~15–30 flops per
+  cell and channel. What the design does about it: the BC'd dye is not
+  written and read back (the two-launch design did, through a float
+  scratch plane at bf16), the velocity and masks are read once a tile, the
+  dye arrives in aligned 16-byte chunks and the outputs leave as 4-cell
+  vector stores.
 
 Storage. The state's planes, the scene's ``bc_const`` / ``bc_dye`` and the
 outputs are float32 or bfloat16, one dtype per call (the transport dtype);
 arithmetic is float32 and each output is rounded once, where the plain
 version's ``.to(sd)`` rounds it. A stage result that a later stage reads
-stays float32 (the fused kernels' shared-memory windows; the MAC phases'
-float scratch at bf16, ``csrc/common.cuh``), so the bf16 kernels are
-bit-identical to the plain versions wherever the float32 ones are. The CIP
-phases and confinement take a storage flag; the MAC phases have one C
-entry point per storage type.
+stays float32 (the fused kernels' shared-memory windows; the MAC velocity
+phase's float scratch at bf16, ``csrc/common.cuh``), so the bf16 kernels
+are bit-identical to the plain versions wherever the float32 ones are. The
+CIP phases, confinement and the MAC dye phase take a storage flag; the MAC
+velocity phase has one C entry point per storage type.
 
 Each wrapper takes CPU tensors to its plain version and launches its
 kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
@@ -173,7 +179,7 @@ def _cip_constants(re: float, dt: float, dx: float) -> tuple[float, ...]:
 
 
 def _wide_scratch(shape, sd, dev, n: int) -> list[torch.Tensor]:
-    """The `n` float planes a bf16 MAC phase keeps beside its rounded outputs
+    """The `n` float planes the bf16 MAC velocity phase keeps beside its rounded outputs
     for its later launches to read (none at float32, where the outputs are
     those planes). The caller holds them until the launch is queued."""
     if sd == torch.float32:
@@ -405,9 +411,9 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
     if on_cpu(dye, "mac_dye_phase_cuda"):
         return mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx)
     dev, sd = dye.device, dye.dtype
+    bf16 = bf16_storage("mac_dye_phase_cuda", sd)
     chans, x_rows, y_cols = dye.shape
-    dyes, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
-    name, i8 = entry("f2d_mac_dye_phase", sd), torch.int8
+    dyes, vec, plane, i8 = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
     ptrs = [
         require(dye, "dye", dyes, sd, dev),
         require(dye_alt, "dye_alt", dyes, sd, dev),
@@ -418,9 +424,8 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
     ]
     d_out = torch.empty_like(dye)
     d_bc = torch.empty_like(dye)
-    bc32 = _wide_scratch(dyes, sd, dev, 1)
-    launch(name, dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), *(t.data_ptr() for t in bc32),
-           x_rows, y_cols, chans, int(scheme == "kk"), dt, _inv_adv(scheme, dx))
+    launch("f2d_mac_dye_phase", dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), x_rows, y_cols,
+           chans, int(scheme == "kk"), bf16, dt, _inv_adv(scheme, dx))
     mac_dye_phase_cuda.launches += 1
     return d_out, d_bc
 

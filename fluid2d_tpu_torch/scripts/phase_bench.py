@@ -12,23 +12,28 @@ kernel:
   cip_velocity_phase  A3
   cip_dye_phase       A4
   jacobi_n2           B1: two Jacobi iterations with the limiter, one call
-then, at float32, the kernels that share the phases' per-cell functions (C1's
-dye form, B2 and B3 upwind); the C3 twins of the mixes the tree registers
-(``mix_twin``: the same bytes read once at reach 0) and the C5f dye-mix twin
-at reach 1; the probes that stream a plane, each beside the one PyTorch call
-of the same function on the same float32 plane (``probes_ms``), the plane
+then, at both dtypes, the kernels that share the phases' per-cell functions
+(C1's dye form, B2 upwind, B3 upwind and KK); the C3 twins of the mixes the
+tree registers (``mix_twin``: the same bytes read once at reach 0) and the
+C5f dye-mix twin at reach 1; the probes, each beside the one PyTorch call of
+the same function on the same float32 plane (``probes_ms``), the plane
 (2·res, res) but where said:
   toy_div3, toy_mul3  C6: x/3 and x·3 (``torch.div``, ``torch.mul`` with out=)
   row_window          C5g at ``row_window_tile``'s t (``torch.mul(a, 2.0, out=o)``)
   row_window_no_tail  C5g on (2·t·SMs, res): two tiles for each persistent
                       block at res=1600 (one block an SM), so no block idles
                       while others take a last tile
-and the headline steps/s (``bench.bench_config``: res CIP, scene 2, both
-dtypes). Each kernel's bound is the bytes its function needs on the scene
+  row_copy_tail_<dtype>  C5b's tail copy of rows [8, 24) of a (256, 256)
+                      float32 or bf16 plane to float32
+                      (``out.copy_(x[8:24])``, which widens bf16 too)
+and the steps/s (``bench.bench_config``, scene 2, both dtypes) of the
+headline (res CIP) and of the MAC schemes (res upwind and KK). Each kernel's
+bound is the bytes its function needs on the scene
 (``utils/profiling.py:needed_bytes``: the registered mix's, with each
 alternate and scene constant counted at the cells that read it) at the card's
 published rate (``HBM_BYTES_PER_S``); the whole mix's bound stands beside it.
-A probe's bound (``<name>_bound``) is its plane read once and written once.
+A probe's bound (``<name>_bound``) is its input read once and its output
+written once.
 ``--probes-only``
 times the probes alone (a sweep of probe variants).
 
@@ -55,7 +60,7 @@ import torch
 from fluid2d_tpu_torch import SimConfig, get_scene, scene_for_dtype
 from fluid2d_tpu_torch.bench import bench_config, resolve_device
 from fluid2d_tpu_torch.models.common import update_pressure_and_limit
-from fluid2d_tpu_torch.ops import cuda_phases, cuda_probes, cuda_stencil
+from fluid2d_tpu_torch.ops import cuda_dtype_probes, cuda_phases, cuda_probes, cuda_stencil
 from fluid2d_tpu_torch.utils import profiling
 
 __all__ = ["median_ms", "phase_calls", "probe_calls", "shared_calls", "time_phases", "BOUND_MIX",
@@ -67,7 +72,8 @@ BOUND_MIX = {"sor_pair": "sor_iteration_n2_v_limit", "confinement": "confinement
              "cip_velocity_phase": "cip_velocity_phase", "cip_dye_phase": "cip_dye_phase",
              "jacobi_n2": "jacobi_iteration_n2_v_limit", "cip_advect": "cip_advect",
              "mac_velocity_phase_upwind": "mac_velocity_phase_upwind",
-             "mac_dye_phase_upwind": "mac_dye_phase_upwind"}
+             "mac_dye_phase_upwind": "mac_dye_phase_upwind",
+             "mac_dye_phase_kk": "mac_dye_phase_kk"}
 TWIN_MIXES = ("cip_velocity_phase", "cip_dye_phase", "sor_iteration_n2_v_limit", "confinement",
               "jacobi_iteration_n2_v_limit")
 TIMED_CALLS = 20
@@ -136,15 +142,18 @@ def phase_calls(res: int, dtype: torch.dtype, dev) -> dict[str, tuple]:
     }
 
 
-def shared_calls(res: int, dev) -> dict[str, tuple]:
-    """{name: (wrapper, args)} at float32 for the kernels that share the
-    phases' per-cell functions: C1 (its dye form) and B2, B3 (upwind)."""
-    cfg = SimConfig.create(resolution=res)
-    scene = get_scene(2, res, dev)
+def shared_calls(res: int, dev, dtype: torch.dtype = torch.float32) -> dict[str, tuple]:
+    """{name: (wrapper, args)} at `dtype` for the kernels that share the
+    phases' per-cell functions: C1 (its dye form), B2 (upwind) and B3
+    (upwind and KK)."""
+    dname = str(dtype).removeprefix("torch.")
+    cfg = SimConfig.create(resolution=res, dtype=dname)
+    scene = scene_for_dtype(get_scene(2, res, dev), cfg)
     gen = torch.Generator(device=dev).manual_seed(4321)
 
     def rnd(lead, scale, offset=0.0):
-        return scale * torch.randn((*lead, *scene.shape), generator=gen, device=dev) + offset
+        t = scale * torch.randn((*lead, *scene.shape), generator=gen, device=dev) + offset
+        return t.to(dtype)
 
     p, v, dye = rnd((), 0.3), rnd((2,), 0.5), rnd((3,), 0.5, 0.5)
     return {
@@ -154,45 +163,57 @@ def shared_calls(res: int, dev) -> dict[str, tuple]:
         "mac_velocity_phase_upwind": (cuda_phases.mac_velocity_phase_cuda,
                                       (v, p, rnd((2,), 0.5), scene, "upwind", cfg.re, cfg.dt,
                                        cfg.dx)),
-        "mac_dye_phase_upwind": (cuda_phases.mac_dye_phase_cuda,
-                                 (dye, rnd((3,), 0.5, 0.5), v, scene, "upwind", cfg.dt, cfg.dx)),
+        **{f"mac_dye_phase_{scheme}": (cuda_phases.mac_dye_phase_cuda,
+                                       (dye, rnd((3,), 0.5, 0.5), v, scene, scheme, cfg.dt,
+                                        cfg.dx))
+           for scheme in ("upwind", "kk")},
     }
 
 
 def probe_calls(res: int, dev) -> dict[str, tuple]:
-    """{name: (wrapper call, library call, plane)} for the streaming probes
-    on seeded float32 planes, (2·res, res) but for ``row_window_no_tail``'s
-    (2·t·SMs, res); the library call writes into a preallocated output, as
-    the wrapper's own allocation is not the function."""
+    """{name: (wrapper call, library call, bytes)} for the probes: the
+    streaming ones on seeded float32 planes, (2·res, res) but for
+    ``row_window_no_tail``'s (2·t·SMs, res), and C5b's tail copy at both
+    dtypes on chip_smoke.py's (256, 256) plane; the library call writes into
+    a preallocated output, as the wrapper's own allocation is not the
+    function. The bytes: the input read once and the output written once."""
     gen = torch.Generator(device=dev).manual_seed(97)
     t = cuda_probes.row_window_tile(2 * res, res)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     x = torch.randn((2 * res, res), generator=gen, device=dev)
     y = torch.randn((2 * t * sms, res), generator=gen, device=dev)
     o, p = torch.empty_like(x), torch.empty_like(y)
-    return {
+    calls = {
         "toy_div3": (lambda: cuda_probes.toy_elementwise_cuda(x, "div3"),
-                     lambda: torch.div(x, 3.0, out=o), x),
+                     lambda: torch.div(x, 3.0, out=o), 2 * x.nbytes),
         "toy_mul3": (lambda: cuda_probes.toy_elementwise_cuda(x, "mul3"),
-                     lambda: torch.mul(x, 3.0, out=o), x),
+                     lambda: torch.mul(x, 3.0, out=o), 2 * x.nbytes),
         "row_window": (lambda: cuda_probes.row_window_cuda(x, t),
-                       lambda: torch.mul(x, 2.0, out=o), x),
+                       lambda: torch.mul(x, 2.0, out=o), 2 * x.nbytes),
         "row_window_no_tail": (lambda: cuda_probes.row_window_cuda(y, t),
-                               lambda: torch.mul(y, 2.0, out=p), y),
+                               lambda: torch.mul(y, 2.0, out=p), 2 * y.nbytes),
     }
+    oc = torch.empty((16, 256), device=dev)
+    for dname, dtype in DTYPES.items():
+        xc = (torch.arange(256 * 256, dtype=torch.float32, device=dev).reshape(256, 256)
+              * 1e-4).to(dtype)
+        calls[f"row_copy_tail_{dname}"] = (
+            lambda xc=xc: cuda_dtype_probes.row_copy_cuda(xc, "tail"),
+            lambda xc=xc: oc.copy_(xc[8:24]), xc[8:24].nbytes + oc.nbytes)
+    return calls
 
 
 def probe_ms(res: int, calls: int, dev) -> dict:
     """Each probe's ms, its library call's (``<name>_library``) and its
-    bound (``<name>_bound``: its plane read once and written once at the
-    published rate); ``row_window_no_tail_rows``: that plane's rows."""
+    bound (``<name>_bound``: its bytes at the published rate);
+    ``row_window_no_tail_rows``: that plane's rows."""
     out = {}
-    for name, (kernel, library, plane) in probe_calls(res, dev).items():
+    for name, (kernel, library, nbytes) in probe_calls(res, dev).items():
         out[name] = median_ms(kernel, calls)
         out[f"{name}_library"] = median_ms(library, calls)
-        out[f"{name}_bound"] = 2 * plane.nbytes / profiling.HBM_BYTES_PER_S * 1e3
-        if name == "row_window_no_tail":
-            out[f"{name}_rows"] = plane.shape[0]
+        out[f"{name}_bound"] = nbytes / profiling.HBM_BYTES_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out["row_window_no_tail_rows"] = 2 * cuda_probes.row_window_tile(2 * res, res) * sms
     return out
 
 
@@ -235,11 +256,15 @@ def measure(res: int, calls: int, steps: int, probes_only: bool = False) -> dict
     if probes_only:
         return result
     result["phases_ms"] = time_phases(res, calls, dev)
-    result["shared_ms"] = {name: median_ms(lambda fn=fn, a=a: fn(*a), calls)
-                           for name, (fn, a) in shared_calls(res, dev).items()}
+    result["shared_ms"] = {f"{name}_{dname}": median_ms(lambda fn=fn, a=a: fn(*a), calls)
+                           for dname, dtype in DTYPES.items()
+                           for name, (fn, a) in shared_calls(res, dev, dtype).items()}
     result["twins_ms"] = twin_ms(res, calls, dev)
     result["headline_steps_per_s"] = {
         dname: bench_config(res, "cip", steps, dtype=dname, device=dev)[0] for dname in DTYPES}
+    result["mac_steps_per_s"] = {
+        f"{scheme}_{dname}": bench_config(res, scheme, steps, dtype=dname, device=dev)[0]
+        for scheme in ("upwind", "kk") for dname in DTYPES}
     return result
 
 

@@ -210,18 +210,19 @@ def test_phase_bench_requires_a_card():
 def test_phase_bench_calls_route_cpu_tensors_to_plain(dtype):
     """The script's calls on CPU tensors (A1's step pair, A2, A3, A4, B1):
     each wrapper takes its plain version, so kernel and plain outputs are
-    the same to the bit; the shared-function calls (C1, B2, B3) run and keep
-    their input's shape; every timed call has a registered mix for its
-    bound."""
+    the same to the bit; the shared-function calls (C1, B2, B3 upwind and
+    KK) run at the same dtype and keep their input's shape and dtype; every
+    timed call has a registered mix for its bound."""
     from fluid2d_tpu_torch.scripts import phase_bench
     from fluid2d_tpu_torch.utils import profiling
 
     calls = phase_bench.phase_calls(16, dtype, torch.device("cpu"))
     for name, (wrapper, plain, args) in calls.items():
         assert _equal(wrapper(*args), plain(*args)), name
-    shared = phase_bench.shared_calls(16, torch.device("cpu"))
+    shared = phase_bench.shared_calls(16, torch.device("cpu"), dtype)
     for name, (fn, args) in shared.items():
-        assert all(o.shape[-2:] == args[0].shape[-2:] for o in fn(*args)), name
+        assert all(o.shape[-2:] == args[0].shape[-2:] and o.dtype == dtype
+                   for o in fn(*args)), name
     assert set(phase_bench.BOUND_MIX) == set(calls) | set(shared)
     assert set(phase_bench.BOUND_MIX.values()) <= set(profiling._KERNEL_MIXES)
     bounds = phase_bench.bounds_ms(16)

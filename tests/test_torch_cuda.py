@@ -31,14 +31,19 @@ iterations, with and without the limiter, on every pair link) and the fused
 confinement bit-equal at float32 and bf16 on the same grids and on an open
 scene (fluid to the grid's edge), with one launch and only the outputs
 allocated; the Jacobi kernel (B1), which shares the pressure cell rules,
-bit-equal there too.
+bit-equal there too. The fused MAC dye phase (B3, one launch on tiles with
+a recomputed halo of 1 or 2) bit-equal for both schemes at float32 and bf16
+on the same grids, an open scene with inflow to its edge and 3200×1600,
+with one launch and two output allocations (no scratch); its one entry
+point refuses what the two per-dtype ones refused.
 
 The standalone CIP advection (C1) bit-equal at float32 and bf16; the FMA
 sweep (C5d) within ``fma_rate_error_bound`` of the float64 plain version,
 which one round short exceeds; the geometry twin (C5e/f) within
 1e-5·max(1, |ref|max); the row window (C5g, with 1, 2 and 8 tiles a
 persistent block) and the el-op toys (C6, with ragged tails and a
-misaligned view) bit-equal.
+misaligned view) bit-equal; the row copies (C5b) bit-equal at several t,
+the tail copy spread over one block a row.
 """
 
 import numpy as np
@@ -711,3 +716,112 @@ def test_cuda_jacobi_shares_the_pressure_rules_bit_equal(cuda_device, grid, n_it
     got = cuda_stencil.jacobi_iteration_cuda(*args, **kw)
     torch.cuda.synchronize()
     _assert_bit_equal(got, cuda_stencil.jacobi_iteration_plain(*args, **kw), f"jacobi{n_iters}")
+
+
+# The fused MAC dye phase (B3: one launch a call on tiles with a recomputed
+# halo of 1 or 2) on the fused phases' grids, an open scene with fluid and
+# inflow to the grid's edge (the BC'd values past the grid decide the edge
+# cells) and the main path's 3200×1600.
+MAC_DYE_GRIDS = {**TILE_GRIDS, "main_3200x1600": (2, 1600)}
+
+
+def _mac_dye_call(bc, res, dtype, scheme, device):
+    """Seeded (dye, dye_alt, vel, scene, scheme, dt, dx) of scene `bc` at
+    `res` (None: the open scene) in `dtype`."""
+    cfg = SimConfig.create(resolution=res, dtype=str(dtype).removeprefix("torch."))
+    sc = scene_for_dtype(get_scene(2 if bc is None else bc, res, device), cfg)
+    if bc is None:
+        inflow = torch.zeros(sc.shape, dtype=torch.bool, device=device)
+        inflow[0], inflow[-1], inflow[:, 0] = True, True, True
+        fluid = torch.ones(sc.shape, dtype=torch.bool, device=device)
+        sc = sc._replace(fluid=fluid, fluid8=fluid.to(torch.int8), inflow=inflow,
+                         inflow8=inflow.to(torch.int8))
+    gen = torch.Generator(device="cpu").manual_seed(30 * (bc or 7) + res)
+
+    def rnd(lead, scale, offset=0.0):
+        t = offset + scale * torch.randn((*lead, *sc.shape), generator=gen)
+        return t.to(dtype).to(device)
+
+    return rnd((3,), 0.5, 0.5), rnd((3,), 0.5, 0.5), rnd((2,), 30.0), sc, scheme, cfg.dt, cfg.dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scheme", ["upwind", "kk"])
+@pytest.mark.parametrize("grid", MAC_DYE_GRIDS.values(), ids=MAC_DYE_GRIDS.keys())
+def test_cuda_fused_mac_dye_bit_equal_to_plain(cuda_device, grid, scheme, dtype):
+    """One launch, two output allocations (no float scratch at bf16), both
+    outputs equal to the plain version's to the bit."""
+    args = _mac_dye_call(*grid, dtype, scheme, cuda_device)
+    wrapper = cuda_phases.mac_dye_phase_cuda
+    before, allocs = wrapper.launches, _allocations(cuda_device)
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert _allocations(cuda_device) - allocs == 2
+    _assert_bit_equal(got, cuda_phases.mac_dye_phase_plain(*args), f"mac_dye_{scheme}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 5])
+def test_cuda_fused_mac_dye_any_channel_count(cuda_device, channels):
+    """A block takes every channel of its tile: one and five channels too."""
+    dye, dye_alt, vel, sc, scheme, dt, dx = _mac_dye_call(2, 37, torch.float32, "kk", cuda_device)
+    sc = sc._replace(bc_dye=sc.bc_dye[:1].repeat(channels, 1, 1).contiguous())
+    args = (dye[:1].repeat(channels, 1, 1) * torch.arange(1, channels + 1, device=cuda_device)
+            .view(-1, 1, 1) / channels, dye_alt[:1].repeat(channels, 1, 1), vel, sc, scheme, dt,
+            dx)
+    got = cuda_phases.mac_dye_phase_cuda(*args)
+    torch.cuda.synchronize()
+    _assert_bit_equal(got, cuda_phases.mac_dye_phase_plain(*args), f"mac_dye_c{channels}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_mac_dye_entry_refuses_wrong_operands(cuda_device, dtype):
+    """The one storage-flag entry point refuses what the per-dtype pair
+    did: another storage dtype, operands of mixed dtypes, shapes, devices or
+    layouts, and an unknown scheme; nothing is launched."""
+    dye, dye_alt, vel, sc, scheme, dt, dx = _mac_dye_call(2, 37, dtype, "kk", cuda_device)
+    wrapper = cuda_phases.mac_dye_phase_cuda
+    before = wrapper.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        wrapper(dye.half(), dye_alt.half(), vel.half(), sc, scheme, dt, dx)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(TypeError, match="dtype"):
+        wrapper(dye, dye_alt.to(other), vel, sc, scheme, dt, dx)
+    with pytest.raises(TypeError, match="dtype"):
+        wrapper(dye, dye_alt, vel.to(other), sc, scheme, dt, dx)
+    with pytest.raises(ValueError, match="shape"):
+        wrapper(dye, dye_alt, vel[:, :-1].contiguous(), sc, scheme, dt, dx)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(dye, dye_alt.transpose(1, 2).contiguous().transpose(1, 2), vel, sc, scheme, dt, dx)
+    with pytest.raises(ValueError, match="on cpu"):
+        wrapper(dye, dye_alt.cpu(), vel, sc, scheme, dt, dx)
+    with pytest.raises(ValueError, match="scheme"):
+        wrapper(dye, dye_alt, vel, sc, "cip", dt, dx)
+    assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 5, 16, 40])
+@pytest.mark.parametrize("mode", cuda_dtype_probes.COPY_MODES)
+def test_cuda_row_copy_bit_equal_at_each_window(cuda_device, mode, t, dtype):
+    """Every copy at several window heights (the tail copy one block a row)
+    bit-equal to its plain slices, on seeded normal values; the head copy,
+    which moves rows [8, 24) of its window, refuses a window of fewer than
+    24 rows, where its plain slices do not fit either."""
+    x = torch.randn((t + 16, 128), generator=torch.Generator().manual_seed(t)).to(dtype)
+    before = cuda_dtype_probes.row_copy_cuda.launches
+    if mode == "head" and t < 8:
+        with pytest.raises(ValueError, match="window"):
+            cuda_dtype_probes.row_copy_cuda(x.to(cuda_device), mode, t)
+        with pytest.raises(RuntimeError):
+            cuda_dtype_probes.row_copy_plain(x, mode, t)
+        assert cuda_dtype_probes.row_copy_cuda.launches == before
+        return
+    got = cuda_dtype_probes.row_copy_cuda(x.to(cuda_device), mode, t)
+    torch.cuda.synchronize()
+    assert cuda_dtype_probes.row_copy_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), cuda_dtype_probes.row_copy_plain(x, mode, t))

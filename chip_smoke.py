@@ -27,9 +27,9 @@ Phases, each printed as JSON lines:
              a given velocity, and its velocity form, 2 channels, vel is f)
              against its plain PyTorch version at the res=1600 shapes on
              seeded random inputs: at float32 every output within
-             1e-5·max(1, |ref|max) (in fact 0.0), the fused kernels (the
-             CIP phases, SOR, confinement, the MAC dye phase: BIT_EQUAL_F32)
-             bit-equal; at bf16
+             1e-5·max(1, |ref|max) (in fact 0.0), the fused kernels (every
+             phase kernel: the CIP and MAC phases, SOR, Jacobi,
+             confinement: BIT_EQUAL_F32) bit-equal; at bf16
              every variant (SOR: one and two iterations, with and without
              the limiter) and
              every pressure chain link (bf16→f32, f32→f32, f32→bf16,
@@ -72,9 +72,12 @@ Phases, each printed as JSON lines:
              phase, SOR and confinement call (PROFILE_COUNTS: one SOR call a
              step runs both iterations), none of the launches they replaced,
              and no standalone advection. Then over two kk steps at float32
-             (KK_PROFILE_COUNTS): one fused launch a MAC dye phase call and
-             none of the two it replaced, B2's two launches, SOR's and
-             confinement's one. A host's profiler may drop a
+             (KK_PROFILE_COUNTS): one fused launch a MAC velocity and a MAC
+             dye phase call and none of the two launches each replaced,
+             SOR's and confinement's one; and over two cip_jacobi2 steps
+             (JACOBI_PROFILE_COUNTS): one fused launch a Jacobi call and
+             none of the BC and sweep launches it replaced. A host's
+             profiler may drop a
              launch from a trace: a trace that holds only expected kernels
              but too few of them is taken again, up to PROFILE_TRACES in
              all, and the phase fails if none is whole (an empty trace
@@ -227,9 +230,9 @@ PROBES = ("copy_add1", "mix_twin", "mix_twin_bf16", "fma_rate", "dtype_rate", "r
 SWEEP_HEAD = {"chains": 8, "depth": 1024, "threads": 256}  # the fma_sweep row's timed case
 TOY_SHAPES = ((32, 128), (8, 128), (2 * RES, RES))
 # The port's kernels as torch.profiler names them (phase 4, profile).
-PORT_KERNELS = ("cip_velocity_fused_kernel", "cip_dye_fused_kernel", "velocity_bc_kernel",
-                "confinement_fused_kernel", "sor_fused_kernel", "pressure_bc_kernel",
-                "jacobi_sweep_kernel", "mac_velocity_update_kernel", "mac_dye_fused_kernel")
+PORT_KERNELS = ("cip_velocity_fused_kernel", "cip_dye_fused_kernel",
+                "confinement_fused_kernel", "sor_fused_kernel", "jacobi_fused_kernel",
+                "mac_velocity_fused_kernel", "mac_dye_fused_kernel")
 # Device kernels of two headline steps that the profile phase counts exactly:
 # one fused launch a CIP phase, SOR and confinement call (one SOR call a step,
 # both iterations), none of the launches the fused SOR and confinement
@@ -238,16 +241,23 @@ PROFILE_COUNTS = {"cip_velocity_fused_kernel": 2, "cip_dye_fused_kernel": 2,
                   "sor_fused_kernel": 2, "confinement_fused_kernel": 2, "advect_kernel": 0,
                   "sor_odd_kernel": 0, "sor_even_kernel": 0, "pressure_bc_kernel": 0,
                   "curl_kernel": 0, "confine_kernel": 0}
-# The same for two kk steps at res=1600: one fused launch a MAC dye phase
-# call, none of the two launches it replaced (the dye BC, the dye update);
-# the MAC velocity phase's two; one SOR and one confinement launch a step.
-KK_PROFILE_COUNTS = {"mac_dye_fused_kernel": 2, "dye_bc_kernel": 0, "mac_dye_update_kernel": 0,
-                     "velocity_bc_kernel": 2, "mac_velocity_update_kernel": 2,
+# The same for two kk steps at res=1600: one fused launch a MAC velocity and
+# a MAC dye phase call, none of the two launches each replaced (the BC, the
+# update); one SOR and one confinement launch a step.
+KK_PROFILE_COUNTS = {"mac_velocity_fused_kernel": 2, "velocity_bc_kernel": 0,
+                     "mac_velocity_update_kernel": 0, "mac_dye_fused_kernel": 2,
+                     "dye_bc_kernel": 0, "mac_dye_update_kernel": 0,
                      "sor_fused_kernel": 2, "confinement_fused_kernel": 2}
+# The same for two cip_jacobi2 steps: one fused launch a Jacobi call (both
+# iterations), none of the two a Jacobi iteration ran before (the pressure
+# BC, the sweep); the CIP phases' and confinement's one.
+JACOBI_PROFILE_COUNTS = {"jacobi_fused_kernel": 2, "pressure_bc_kernel": 0,
+                         "jacobi_sweep_kernel": 0, "cip_velocity_fused_kernel": 2,
+                         "cip_dye_fused_kernel": 2, "confinement_fused_kernel": 2}
 # Kernels held to their plain versions bit for bit at float32 too (the others
-# within KERNEL_TOL, in fact 0.0): the fused ones.
+# within KERNEL_TOL, in fact 0.0): the fused ones, which are every phase kernel.
 BIT_EQUAL_F32 = ("cip_velocity_phase", "cip_dye_phase", "sor_iteration", "confinement",
-                 "mac_dye_phase")
+                 "mac_velocity_phase", "mac_dye_phase", "jacobi_iteration")
 
 
 def _preset_path(n: int):
@@ -1085,7 +1095,8 @@ def _trace_two_steps(sim) -> list[tuple[str, float]]:
 def _check_trace(timed, what: str, want: dict[str, int]) -> dict[str, int] | None:
     """One trace of two steps (_trace_two_steps) against what they launch:
     the port kernels of `want` exactly as often as it says (PROFILE_COUNTS,
-    KK_PROFILE_COUNTS) and one PyTorch elementwise add a step (the step
+    KK_PROFILE_COUNTS, JACOBI_PROFILE_COUNTS) and one PyTorch elementwise add
+    a step (the step
     counter), no copy or convert kernel. Returns the port kernels' counts;
     None where the trace holds only those kernels, none too often, but
     misses a launch (a profiler that dropped records, or traced nothing);
@@ -1113,8 +1124,9 @@ def _check_trace(timed, what: str, want: dict[str, int]) -> dict[str, int] | Non
 
 
 def check_profile(dev) -> None:
-    """torch.profiler over two headline steps at each dtype and two kk steps
-    at float32 (after two traced as its warm-up), held to _check_trace, the
+    """torch.profiler over two headline steps at each dtype, two kk steps and
+    two cip_jacobi2 steps at float32 (after two traced as its warm-up), held
+    to _check_trace, the
     same port kernels in the headline at both dtypes. A host's profiler may
     drop a launch from a trace: a trace that only misses launches is taken
     again, up to PROFILE_TRACES in all, and the phase fails if none is
@@ -1122,7 +1134,8 @@ def check_profile(dev) -> None:
     seen = {}
     runs = (("float32", {"dtype": "float32"}, PROFILE_COUNTS),
             ("bfloat16", {"dtype": "bfloat16"}, PROFILE_COUNTS),
-            ("kk", {"scheme": "kk"}, KK_PROFILE_COUNTS))
+            ("kk", {"scheme": "kk"}, KK_PROFILE_COUNTS),
+            ("cip_jacobi2", {"pressure_solver": "jacobi"}, JACOBI_PROFILE_COUNTS))
     for what, kw, want in runs:
         sim = FluidSimulator.create(bc_num=SCENE, resolution=RES, device="cuda", **kw)
         sim.step(2)

@@ -10,11 +10,11 @@
 // Storage. A field in device memory is stored as `float` or `bf16` (the
 // transport dtype of the state, SimConfig.dtype); all arithmetic is float.
 // ld() widens on load (exact); a bf16 store rounds to nearest even
-// (__float2bfloat16_rn), as PyTorch's .to(torch.bfloat16) does. A plane
-// that a later launch of the same phase reads is kept in a float scratch
-// plane; its bf16 copy, where it is also a phase output, is written beside
-// it (st2) and never read back. So a phase rounds each output once, at the
-// points where the JAX package's jnp path rounds (fluid2d_tpu/utils/dtypes.py).
+// (__float2bfloat16_rn), as PyTorch's .to(torch.bfloat16) does. A stage
+// result that a later stage reads stays float (the fused kernels'
+// shared-memory windows, tile.cuh), so a phase rounds each output once, at
+// the points where the JAX package's jnp path rounds
+// (fluid2d_tpu/utils/dtypes.py).
 //
 // Rounding. Each kernel evaluates the port's eager PyTorch expression in the
 // same operation order and rounds where PyTorch's CUDA eager ops round, so
@@ -61,20 +61,6 @@ __device__ __forceinline__ void st_pair(float* p, long long k, float a, float b)
 __device__ __forceinline__ void st_pair(bf16* p, long long k, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p + k) =
       __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
-}
-
-// A value that later launches read (`wide`, float) and that is also a phase
-// output of storage type S (`narrow`). For S = float the two are one plane
-// and `narrow` is ignored. For S = bf16 either pointer may be null: `wide`
-// when no later launch reads the value, `narrow` when it is no output.
-template <typename S>
-__device__ __forceinline__ void st2(float* wide, S* narrow, long long k, float v) {
-  if constexpr (kIsBf16<S>) {
-    if (wide != nullptr) wide[k] = v;
-    if (narrow != nullptr) narrow[k] = __float2bfloat16_rn(v);
-  } else {
-    wide[k] = v;
-  }
 }
 
 constexpr int kBlockY = 32;  // threads along the contiguous axis

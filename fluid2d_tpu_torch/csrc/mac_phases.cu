@@ -9,16 +9,27 @@
 // stencils do, not with 1/dx factored out of the sums as the Pallas window
 // helpers do.
 //
-// Velocity phase, two launches:
-//   1. BC      state -> v_bc  (the new alternate buffer, an output; bc.cuh)
-//   2. update  v_bc  -> v_cur at fluid cells, the old alternate elsewhere:
-//              v_bc + dt·((−adv(v_bc) − ∇p) + ∇²v_bc/Re)
-// The BC'd field is in device memory before the update reads it, so the
-// KK stencil's ±2 reads clamp at the grid ends exactly as the jnp path's
-// shifts of the computed field do (what the Pallas kernels rebuild with
-// _reclamp). It is a float plane: for S = float the returned alternate
-// itself; for S = bf16 a scratch plane, beside which the BC launch writes
-// the rounded alternate.
+// Velocity phase, one launch (mac_velocity_fused_kernel), in the design of
+// the dye phase below: a block owns a TX × TY tile of output cells of both
+// velocity channels. It copies the pre-BC velocity into float windows on the
+// tile + (H + 2), H = 1 (upwind) or 2 (KK): the BC's ghost mirrors read two
+// cells away and the outflow rule one cell upstream; the pressure on the
+// tile + 1 for ∇p; one flag byte a cell (vbc_code, fluid) on the tile + H.
+// It then applies the BC (velocity_bc_cell, bc.cuh) on the tile + H, each
+// entry at its clamped cell with that cell's code (bc_const read from device
+// memory at the few inflow cells), in place at the cells with a code: every
+// entry's BC is evaluated from the pre-BC windows before any is stored
+// (tile.cuh:rewrite_in_place), so an entry past the grid holds the BC'd
+// value at the clamped cell:
+// what the KK stencil's ±2 reads of the jnp path's computed field give at the
+// grid's edge (what the Pallas kernels rebuild with _reclamp). The update
+// runs on the tile, four cells a thread along Y: v_bc + dt·((−adv(v_bc) − ∇p)
+// + ∇²v_bc/Re) at fluid cells, the old alternate (read only there)
+// elsewhere, and two stores a channel: the update and v_bc (the new
+// alternate). Bound: bytes (v, p and two int8 planes read, v_alt and
+// bc_const at the cells that need them, two (2, X, Y) planes written; ~40
+// (upwind) to ~60 (KK) flops a cell and channel); nothing but the outputs
+// is written.
 //
 // Dye phase, one launch (mac_dye_fused_kernel), as the fused CIP dye phase
 // (cip_phases.cu, tile.cuh): a block owns a TX × TY tile of output cells of
@@ -27,8 +38,7 @@
 // byte a cell (inflow, fluid), then applies the inflow BC in place at each
 // entry's clamped cell (dye_bc_cell; the scene's colours read from device
 // memory at the few inflow cells), so an entry past the grid holds the BC'd
-// value at the clamped cell: what the two-launch design read through Grid::at
-// and what the Pallas kernels rebuild with _reclamp. The update then runs on
+// value at the clamped cell, as in the velocity phase. The update then runs on
 // the tile, four cells a thread along Y: d_bc − dt·adv(d_bc) by the limited
 // velocity (read at the tile's cells only) at fluid cells, the old alternate
 // (read only there) elsewhere, the [0, 1] clamp (fminf/fmaxf: NaN → 0), and
@@ -52,7 +62,7 @@ using f2d::Window;
 
 namespace {
 
-// Output tile of a fused dye block, rows × columns.
+// Output tile of a fused block (either phase), rows × columns.
 constexpr int kTileX = 32, kTileY = 32;
 // A fused dye block takes every channel of its tile (the velocity and the
 // masks read once a tile); false: one channel a blockIdx.z.
@@ -91,50 +101,129 @@ struct MacConsts {
   float dt, inv_dx, inv_adv, inv_dx2, inv_re;  // as ops/cuda_phases.py rounds them
 };
 
-// v + dt·(−(v·∇)v − ∇p + ∇²v/Re) at fluid cells (fs/solver.py:79-107),
-// v_alt elsewhere; blockIdx.z is the component.
-template <bool kKK, typename S>
-__global__ void mac_velocity_update_kernel(const float* __restrict__ v_bc,
-                                           const S* __restrict__ p,
-                                           const S* __restrict__ v_alt,
-                                           const int8_t* __restrict__ fluid,
-                                           S* __restrict__ out, Grid g, MacConsts c) {
-  int i, j;
-  if (!f2d::cell_of(g, i, j)) return;
-  const int ch = blockIdx.z;
-  const long long k = (long long)i * g.Y + j;
-  const long long kc = ch * g.plane() + k;
-  if (fluid[k] == 0) {
-    f2d::st(out, kc, ld(v_alt, kc));
-    return;
+// A cell's flag byte in the fused velocity kernel's window: its vbc_code
+// (0..6) in the low bits, then fluid.
+constexpr unsigned kVelCode = 7u, kVelFluid = 8u;
+
+struct VelFlags {  // fill_flags' packing of the (vbc_code, fluid) bytes
+  __device__ __forceinline__ unsigned operator()(unsigned code, unsigned fluid) const {
+    return (code & kVelCode) | (fluid != 0 ? kVelFluid : 0u);
   }
-  const float* f = v_bc + ch * g.plane();
-  const auto fa = [f, &g](int a, int b) { return f[g.at(a, b)]; };
-  const float f0 = f[k];
-  const float adv = advect_term<kKK>(fa, i, j, v_bc[k], v_bc[g.plane() + k], c.inv_adv);
-  const float gp = ch == 0 ? 0.5f * (ld(p, g.at(i + 1, j)) - ld(p, g.at(i - 1, j))) * c.inv_dx
-                           : 0.5f * (ld(p, g.at(i, j + 1)) - ld(p, g.at(i, j - 1))) * c.inv_dx;
-  const float lap = (f[g.at(i + 1, j)] - 2.0f * f0 + f[g.at(i - 1, j)]) * c.inv_dx2
-                    + (f[g.at(i, j + 1)] - 2.0f * f0 + f[g.at(i, j - 1)]) * c.inv_dx2;
-  const float rhs = -adv - gp + lap * c.inv_re;
-  f2d::st(out, kc, f0 + c.dt * rhs);
+};
+
+// The windows of the velocity phase on a TX × TY tile with a halo of H cells
+// (1 upwind, 2 KK): a channel's velocity on RV rows from the tile's first
+// row − (H + 2) (BC'd in place on the rows from − H), the pressure on RP rows
+// from − 1, the flags on RB rows from − H; all on NC chunks a row from the
+// tile's first column − kV (pitch P), which covers the + (H + 2) columns the
+// BC reads.
+template <bool kKK, int TX, int TY>
+struct MacVelTile {
+  static_assert(TY % kV == 0, "a tile's width is a whole number of chunks");
+  static constexpr int H = kKK ? 2 : 1;
+  static_assert(H + 2 <= kV, "the BC's reach fits one chunk beyond the tile");
+  static constexpr int NC = TY / kV + 2, P = NC * kV;
+  static constexpr int RV = TX + 2 * (H + 2), RB = TX + 2 * H, RP = TX + 2;
+  static constexpr int kBytes = 4 * (2 * RV + RP) * P + RB * P;
+};
+
+// The velocity phase on one TX × TY tile, both channels. v, v_alt, bc_const
+// and the outputs are (2, X, Y), p and the masks (X, Y); vec: every plane
+// allows aligned chunk loads and stores.
+template <typename S, bool kKK, int TX, int TY>
+__global__ void __launch_bounds__(kThreads) mac_velocity_fused_kernel(
+    const S* __restrict__ v, const S* __restrict__ p, const S* __restrict__ v_alt,
+    const S* __restrict__ bc_const, const int8_t* __restrict__ vbc_code,
+    const int8_t* __restrict__ fluid8, S* __restrict__ v_out, S* __restrict__ v_bc, Grid g,
+    MacConsts c, int vec) {
+  using T = MacVelTile<kKK, TX, TY>;
+  constexpr int H = T::H, NC = T::NC, P = T::P, RV = T::RV, RB = T::RB, RP = T::RP;
+  extern __shared__ __align__(16) float smem[];
+  float* const s_v = smem;  // the velocity, channel after channel
+  float* const s_p = s_v + 2 * RV * P;
+  const int ti = blockIdx.y * TX, tj = blockIdx.x * TY, c0 = tj - kV;
+  const long long plane = g.plane();
+  const Window<P, uint8_t> fl{reinterpret_cast<uint8_t*>(s_p + RP * P), ti - H, c0};
+  const Window<P> pw{s_p, ti - 1, c0};
+  const Window<P> v0{s_v, ti - (H + 2), c0}, v1{s_v + RV * P, ti - (H + 2), c0};  // u, w
+
+  // 0. The tile's operands: the pre-BC velocity on the tile + (H + 2), the
+  //    pressure on + 1, the flags on + H.
+  for (int ch = 0; ch < 2; ++ch) {
+    f2d::fill<RV, NC>(s_v + ch * RV * P, v + ch * plane, ti - (H + 2), c0, g, vec);
+  }
+  f2d::fill<RP, NC>(s_p, p, ti - 1, c0, g, vec);
+  f2d::fill_flags<RB, NC>(fl.s, ti - H, c0, g, vec, VelFlags{}, vbc_code, fluid8);
+  f2d::wait_fills();
+
+  // 1. The BC on the tile + H, at each entry's clamped cell, in place at the
+  //    cells with a code.
+  f2d::rewrite_in_place<RB, TY + 2 * H, 2>(
+      ti - H, tj - H,
+      [&](int i0, int j0, float (&r)[2]) {
+        const int i = g.clamp_i(i0), j = g.clamp_j(j0);
+        const int code = fl(i, j) & kVelCode;
+        if (code == 0) return false;  // the BC keeps the velocity
+        r[0] = f2d::velocity_bc_cell(v0, f2d::Plane<S>{bc_const, g}, code, 0, i, j);
+        r[1] = f2d::velocity_bc_cell(v1, f2d::Plane<S>{bc_const + plane, g}, code, 1, i, j);
+        return true;
+      },
+      [&](int i0, int j0, const float (&r)[2]) {
+        s_v[v0.idx(i0, j0)] = r[0];
+        s_v[RV * P + v0.idx(i0, j0)] = r[1];
+      });
+
+  // 2. The update on the tile, kV cells a thread along Y, as the dye phase
+  //    runs its update; the old alternate read only at the non-fluid cells;
+  //    two stores a channel.
+  constexpr int kRowChunks = TY / kV;
+  for (int it = threadIdx.x; it < TX * kRowChunks; it += kThreads) {
+    const int i = ti + it / kRowChunks, j = tj + kV * (it % kRowChunks);
+    if (i >= g.X || j >= g.Y) continue;
+    const int n = min(kV, g.Y - j);
+    const long long k = (long long)i * g.Y + j;
+    for (int ch = 0; ch < 2; ++ch) {
+      const Window<P> f{s_v + ch * RV * P, ti - (H + 2), c0};
+      const long long off = ch * plane + k;
+      float bc[kV], out[kV];
+#pragma unroll
+      for (int t = 0; t < kV; ++t) {
+        const int jt = j + t;
+        bc[t] = f(i, jt);
+        out[t] = 0.0f;
+        if (t >= n) continue;
+        if ((fl(i, jt) & kVelFluid) == 0) {
+          out[t] = f2d::ldg(v_alt, off + t);
+          continue;
+        }
+        const float f0 = bc[t];
+        const float adv = advect_term<kKK>(f, i, jt, v0(i, jt), v1(i, jt), c.inv_adv);
+        const float gp = ch == 0 ? 0.5f * (pw(i + 1, jt) - pw(i - 1, jt)) * c.inv_dx
+                                 : 0.5f * (pw(i, jt + 1) - pw(i, jt - 1)) * c.inv_dx;
+        const float lap = (f(i + 1, jt) - 2.0f * f0 + f(i - 1, jt)) * c.inv_dx2
+                          + (f(i, jt + 1) - 2.0f * f0 + f(i, jt - 1)) * c.inv_dx2;
+        const float rhs = -adv - gp + lap * c.inv_re;
+        out[t] = f0 + c.dt * rhs;
+      }
+      f2d::st_chunk(v_bc, off, bc, n, vec);
+      f2d::st_chunk(v_out, off, out, n, vec);
+    }
+  }
 }
 
-// The velocity phase; v_bc32 is the float BC'd field (v_bc itself for S = float).
-template <typename S>
-int mac_velocity_phase(const S* v, const S* p, const S* v_alt, const S* bc_const,
-                       const int8_t* vbc_code, const int8_t* fluid8, S* v_out, S* v_bc,
-                       float* v_bc32, Grid g, int kk, MacConsts c, cudaStream_t s) {
-  const dim3 blocks = f2d::launch_blocks(g.X, g.Y, 2), threads = f2d::launch_threads();
-  f2d::velocity_bc_kernel<S><<<blocks, threads, 0, s>>>(v, vbc_code, bc_const, v_bc32, v_bc, g);
-  F2D_CHECK_LAUNCH();
-  if (kk) {
-    mac_velocity_update_kernel<true, S><<<blocks, threads, 0, s>>>(v_bc32, p, v_alt, fluid8,
-                                                                   v_out, g, c);
-  } else {
-    mac_velocity_update_kernel<false, S><<<blocks, threads, 0, s>>>(v_bc32, p, v_alt, fluid8,
-                                                                    v_out, g, c);
+template <typename S, bool kKK>
+int mac_velocity_phase(const void* const* in, const int8_t* vbc_code, const int8_t* fluid8,
+                       void* v_out, void* v_bc, Grid g, MacConsts c, cudaStream_t s) {
+  using T = MacVelTile<kKK, kTileX, kTileY>;
+  constexpr auto kernel = mac_velocity_fused_kernel<S, kKK, kTileX, kTileY>;
+  if (const cudaError_t err = f2d::allow_smem<kernel>(T::kBytes); err != cudaSuccess) {
+    return (int)err;
   }
+  auto i = [in](int k) { return static_cast<const S*>(in[k]); };
+  const void* planes[] = {in[0], in[1], in[2], in[3], vbc_code, fluid8, v_out, v_bc};
+  kernel<<<f2d::tile_blocks(g, kTileX, kTileY, 1), kThreads, T::kBytes, s>>>(
+      i(0), i(1), i(2), i(3), vbc_code, fluid8, static_cast<S*>(v_out), static_cast<S*>(v_bc),
+      g, c, f2d::chunk_loads(g, planes, 8));
   F2D_CHECK_LAUNCH();
   return 0;
 }
@@ -160,31 +249,6 @@ struct MacDyeTile {
   static constexpr int kFloats = R * P;
   static constexpr int bytes(int channels) { return 4 * channels * kFloats + R * P; }
 };
-
-// kV cells of plane p from cell k on, stored as S: one aligned vector store
-// when `vec` holds (every chunk then lies in the grid), else the first n one
-// by one.
-template <typename S>
-__device__ __forceinline__ void st_chunk(S* p, long long k, const float (&v)[kV], int n,
-                                         bool vec) {
-  if (vec) {
-    if constexpr (f2d::kIsBf16<S>) {
-      const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(v[0]),
-                                                   __float2bfloat16_rn(v[1]));
-      const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(v[2]),
-                                                   __float2bfloat16_rn(v[3]));
-      *reinterpret_cast<uint2*>(p + k) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
-                                                    *reinterpret_cast<const unsigned*>(&hi));
-    } else {
-      *reinterpret_cast<float4*>(p + k) = make_float4(v[0], v[1], v[2], v[3]);
-    }
-    return;
-  }
-#pragma unroll
-  for (int t = 0; t < kV; ++t) {
-    if (t < n) f2d::st(p, k + t, v[t]);
-  }
-}
 
 // The dye phase on one TX × TY tile: every channel (kAllChannels), or
 // channel blockIdx.z. Dye fields (C, X, Y), vel (2, X, Y), the masks (X, Y)
@@ -255,8 +319,8 @@ __global__ void __launch_bounds__(kThreads) mac_dye_fused_kernel(
         }
         out[t] = fminf(fmaxf(r, 0.0f), 1.0f);
       }
-      st_chunk(d_bc, off, bc, n, vec);
-      st_chunk(d_out, off, out, n, vec);
+      f2d::st_chunk(d_bc, off, bc, n, vec);
+      f2d::st_chunk(d_out, off, out, n, vec);
     }
   }
 }
@@ -283,28 +347,25 @@ int mac_dye_phase(const void* const* in, const int8_t* inflow8, const int8_t* fl
 
 }  // namespace
 
-// v, v_alt, bc_const, v_out, v_bc: (2, X, Y); p: (X, Y). v_bc is the BC'd
-// input velocity, the new alternate. kk selects the scheme (0 upwind).
-extern "C" int f2d_mac_velocity_phase(const float* v, const float* p, const float* v_alt,
-                                      const float* bc_const, const int8_t* vbc_code,
-                                      const int8_t* fluid8, float* v_out, float* v_bc, int X,
-                                      int Y, int kk, float dt, float inv_dx, float inv_adv,
-                                      float inv_dx2, float inv_re, void* stream) {
-  return mac_velocity_phase<float>(v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc, v_bc,
-                                   Grid{X, Y}, kk, MacConsts{dt, inv_dx, inv_adv, inv_dx2, inv_re},
-                                   static_cast<cudaStream_t>(stream));
-}
-
-// The same with bf16 fields; v_bc32: (2, X, Y) float scratch.
-extern "C" int f2d_mac_velocity_phase_bf16(const bf16* v, const bf16* p, const bf16* v_alt,
-                                           const bf16* bc_const, const int8_t* vbc_code,
-                                           const int8_t* fluid8, bf16* v_out, bf16* v_bc,
-                                           float* v_bc32, int X, int Y, int kk, float dt,
-                                           float inv_dx, float inv_adv, float inv_dx2,
-                                           float inv_re, void* stream) {
-  return mac_velocity_phase<bf16>(v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc, v_bc32,
-                                  Grid{X, Y}, kk, MacConsts{dt, inv_dx, inv_adv, inv_dx2, inv_re},
-                                  static_cast<cudaStream_t>(stream));
+// The velocity phase. v, v_alt, bc_const, v_out, v_bc: (2, X, Y); p: (X, Y);
+// the masks (X, Y) int8. v_bc is the BC'd input velocity, the new alternate.
+// kk selects the scheme (0 upwind); every field is stored as bf16 when
+// bf16_storage != 0, else as float.
+extern "C" int f2d_mac_velocity_phase(const void* v, const void* p, const void* v_alt,
+                                      const void* bc_const, const int8_t* vbc_code,
+                                      const int8_t* fluid8, void* v_out, void* v_bc, int X, int Y,
+                                      int kk, int bf16_storage, float dt, float inv_dx,
+                                      float inv_adv, float inv_dx2, float inv_re, void* stream) {
+  const void* in[] = {v, p, v_alt, bc_const};
+  const Grid g{X, Y};
+  const MacConsts c{dt, inv_dx, inv_adv, inv_dx2, inv_re};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_storage) {
+    return kk ? mac_velocity_phase<bf16, true>(in, vbc_code, fluid8, v_out, v_bc, g, c, s)
+              : mac_velocity_phase<bf16, false>(in, vbc_code, fluid8, v_out, v_bc, g, c, s);
+  }
+  return kk ? mac_velocity_phase<float, true>(in, vbc_code, fluid8, v_out, v_bc, g, c, s)
+            : mac_velocity_phase<float, false>(in, vbc_code, fluid8, v_out, v_bc, g, c, s);
 }
 
 // The dye phase. dye, dye_alt, bc_dye, d_out, d_bc: (C, X, Y); vel (2, X, Y),

@@ -1,12 +1,12 @@
 // Pressure boundary condition, pressure prediction and the velocity-norm
 // limiter: the per-cell rules shared by the fused SOR kernel (sor.cu) and the
-// Jacobi iteration (jacobi.cu), and Jacobi's BC kernel.
+// fused Jacobi kernel (jacobi.cu).
 //
 // The arithmetic is the port's eager ops/pressure.py and
 // scenes/runtime_bc.py:pressure_bc, rounded as PyTorch rounds it on the
 // card (common.cuh). The rules read their operands through cell accessors
-// (common.cuh): a Plane in device memory (Jacobi) or a Window of stage
-// values in shared memory (SOR), so both kernels evaluate the same lines.
+// (common.cuh), here Windows of stage values in shared memory, so both
+// kernels evaluate the same lines.
 // Internal linkage: every source that includes this header gets its own copy.
 #pragma once
 
@@ -14,6 +14,25 @@
 
 namespace f2d {
 namespace {
+
+// A cell's flag byte in the fused pressure kernels' windows: its pbc_code
+// (0..10) in the low bits, then whether the sweeps update the cell (SOR:
+// fluid; Jacobi: not_wall).
+constexpr unsigned kCode = 15u, kSwept = 1u << 4;
+
+struct PressureFlags {  // fill_flags' packing of (pbc_code, swept) bytes
+  __device__ __forceinline__ unsigned operator()(unsigned code, unsigned swept) const {
+    return (code & kCode) | (swept != 0 ? kSwept : 0u);
+  }
+};
+
+// The outputs of a fused pressure call, at a tile's cells.
+template <typename TO, typename TV>
+struct PressureOut {
+  TO* p_out;
+  TO* p_bc;
+  TV* v_lim;  // null without the limiter
+};
 
 // Pressure BC at cell (i, j) by its pbc_code 0..10
 // (fs/boundary_condition.py:41-65). p: the pressure before the BC, read at
@@ -34,22 +53,6 @@ __device__ __forceinline__ float pressure_bc_cell(const A& p, int code, int i, i
     case 10: return 0.0f;
     default: return p(i, j);
   }
-}
-
-// The pressure BC of the whole grid, out of place: the result goes to the
-// float plane `out` and (st2) to its rounded copy `out_s` where it is a
-// returned pressure of storage type TO. The pair read is of type TI.
-template <typename TI, typename TO>
-__global__ void pressure_bc_kernel(const TI* __restrict__ p, const int8_t* __restrict__ code,
-                                   float* __restrict__ out, TO* __restrict__ out_s, Grid g) {
-  int i, j;
-  if (!cell_of(g, i, j)) return;
-  const long long k = (long long)i * g.Y + j;
-  // The cell's own value is loaded with its code, not after it.
-  const Plane<TI> pc{p, g};
-  const float p0 = ld(p, k);
-  const auto pre = [&](int a, int b) { return a == i && b == j ? p0 : pc(a, b); };
-  st2(out, out_s, k, pressure_bc_cell(pre, code[k], i, j));
 }
 
 // predict_p (fs/pressure_updater.py:24-38) at (i, j): p the pressure, u and w

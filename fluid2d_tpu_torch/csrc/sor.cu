@@ -49,9 +49,13 @@
 using f2d::bf16;
 using f2d::for_window;
 using f2d::Grid;
+using f2d::kCode;
+using f2d::kSwept;
 using f2d::kThreads;
 using f2d::kV;
 using f2d::predict_p;
+using f2d::PressureFlags;
+using f2d::PressureOut;
 using f2d::Window;
 
 namespace {
@@ -59,15 +63,6 @@ namespace {
 // Output tile of a block, rows × columns: the fastest of the shapes timed on
 // the card (PERF.md §6).
 constexpr int kTileX = 32, kTileY = 32;
-
-// A cell's flag byte: its pbc_code (0..10) in the low bits, then fluid.
-constexpr unsigned kCode = 15u, kFluid = 1u << 4;
-
-struct SorFlags {  // fill_flags' packing of (pbc_code, fluid) bytes
-  __device__ __forceinline__ unsigned operator()(unsigned code, unsigned fluid) const {
-    return (code & kCode) | (fluid != 0 ? kFluid : 0u);
-  }
-};
 
 struct SorConsts {
   float omega, one_minus_omega, dx, inv_eight_dt, v_limit;
@@ -92,14 +87,6 @@ __device__ __forceinline__ float relax(const Window<P>& p, const V& u, const V& 
                                        const SorConsts& c) {
   return c.one_minus_omega * p(i, j) + c.omega * predict_p(p, u, w, i, j, c.dx, c.inv_eight_dt);
 }
-
-// The outputs of a call, at the tile's cells.
-template <typename TO, typename TV>
-struct SorOut {
-  TO* p_out;
-  TO* p_bc;
-  TV* v_lim;  // null without the limiter
-};
 
 // fn(r, c) for every pair of cells (r, c), (r, c + 1) of the H × W region
 // whose first cell is (i0, j0), W even. Consecutive threads take consecutive
@@ -127,9 +114,9 @@ template <int h, int TX, int TY, int P, typename V, typename TO, typename TV>
 __device__ __forceinline__ void sor_once(float* cur, float* bc, float* alt, int ti, int tj,
                                          int wi0, int c0, const Window<P, uint8_t>& fl,
                                          const V& u, const V& w, const Grid& g,
-                                         const SorConsts& c, const SorOut<TO, TV>& out) {
+                                         const SorConsts& c, const PressureOut<TO, TV>& out) {
   const Window<P> cw{cur, wi0, c0}, bw{bc, wi0, c0}, aw{alt, wi0, c0};
-  const auto fluid = [&](int i, int j) { return (fl(i, j) & kFluid) != 0; };
+  const auto fluid = [&](int i, int j) { return (fl(i, j) & kSwept) != 0; };
 
   // 1. BC on the tile + (h − 1).
   for_window<TX + 2 * (h - 1), TY + 2 * (h - 1)>(ti - (h - 1), tj - (h - 1), [&](int i0, int j0) {
@@ -216,7 +203,7 @@ template <typename TI, typename TO, typename TV, int N, int TX, int TY>
 __global__ void __launch_bounds__(kThreads) sor_fused_kernel(
     const TI* __restrict__ p_cur, const TI* __restrict__ p_alt, const TV* __restrict__ u,
     const TV* __restrict__ w, const int8_t* __restrict__ pbc_code,
-    const int8_t* __restrict__ fluid8, SorOut<TO, TV> out, Grid g, SorConsts c, int vec) {
+    const int8_t* __restrict__ fluid8, PressureOut<TO, TV> out, Grid g, SorConsts c, int vec) {
   using T = SorTile<N, TX, TY>;
   constexpr int H = T::H, NC = T::NC, P = T::P, RP = T::RP, RV = T::RV;
   extern __shared__ __align__(16) float smem[];
@@ -236,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) sor_fused_kernel(
   f2d::fill<RP - 4, NC>(s_c + 2 * P, p_alt, ti - (H - 2), c0, g, vec);
   f2d::fill<RV, NC>(s_u, u, ti - (H - 1), c0, g, vec);
   f2d::fill<RV, NC>(s_w, w, ti - (H - 1), c0, g, vec);
-  f2d::fill_flags<RV, NC>(s_fl, ti - (H - 1), c0, g, vec, SorFlags{}, pbc_code, fluid8);
+  f2d::fill_flags<RV, NC>(s_fl, ti - (H - 1), c0, g, vec, PressureFlags{}, pbc_code, fluid8);
   f2d::wait_fills();
 
   const int wi0 = ti - H;
@@ -258,7 +245,7 @@ int sor_launch(const void* p_cur, const void* p_alt, const void* u, const void* 
     return (int)err;
   }
   const void* planes[] = {p_cur, p_alt, u, w, pbc_code, fluid8};
-  const SorOut<TO, TV> out{static_cast<TO*>(p_out), static_cast<TO*>(p_bc),
+  const PressureOut<TO, TV> out{static_cast<TO*>(p_out), static_cast<TO*>(p_bc),
                            static_cast<TV*>(v_lim)};
   kernel<<<f2d::tile_blocks(g, kTileX, kTileY, 1), kThreads, T::kBytes, s>>>(
       static_cast<const TI*>(p_cur), static_cast<const TI*>(p_alt), static_cast<const TV*>(u),

@@ -1,5 +1,6 @@
-// Tiles with a recomputed halo: the window fills and launch helpers shared by
-// the fused kernels (cip_phases.cu, sor.cu, confinement.cu).
+// Tiles with a recomputed halo: the window fills, chunk stores and launch
+// helpers shared by the fused kernels (cip_phases.cu, sor.cu, confinement.cu,
+// mac_phases.cu, jacobi.cu).
 //
 // A fused kernel runs a cascade of stencil stages on one block's tile of
 // output cells. Each stage's values live as float in a shared-memory window
@@ -34,6 +35,33 @@ template <int H, int W, typename Fn>
 __device__ __forceinline__ void for_window(int i0, int j0, Fn fn) {
 #pragma unroll 4
   for (int e = threadIdx.x; e < H * W; e += kThreads) fn(i0 + e / W, j0 + e % W);
+}
+
+// Rewrite in place the entries of the H × W region whose first cell is
+// (i0, j0), for a stage that reads other entries of the same windows (a
+// boundary condition): eval(i, j, v) says whether the entry at (i, j)
+// changes and sets its C new values. Every thread first evaluates its
+// entries into registers, and only after a barrier stores them
+// (store(i, j, v)), so no entry is read after it is rewritten; a second
+// barrier ends the stage. Consecutive threads take consecutive entries of a
+// row, as in for_window.
+template <int H, int W, int C, typename Eval, typename Store>
+__device__ __forceinline__ void rewrite_in_place(int i0, int j0, Eval eval, Store store) {
+  constexpr int kN = (H * W + kThreads - 1) / kThreads;
+  float v[kN][C];
+  bool on[kN];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int e = threadIdx.x + n * kThreads;
+    on[n] = e < H * W && eval(i0 + e / W, j0 + e % W, v[n]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int e = threadIdx.x + n * kThreads;
+    if (on[n]) store(i0 + e / W, j0 + e % W, v[n]);
+  }
+  __syncthreads();
 }
 
 template <int N>
@@ -167,6 +195,31 @@ __device__ __forceinline__ void fill_flags(uint8_t* s, int i0, int c0, const Gri
       }
       *reinterpret_cast<unsigned*>(s + kV * it) = packed;
     }
+  }
+}
+
+// kV cells of plane p from cell k on, stored as S: one aligned vector store
+// when `vec` holds (every chunk then lies in the grid), else the first n one
+// by one.
+template <typename S>
+__device__ __forceinline__ void st_chunk(S* p, long long k, const float (&v)[kV], int n,
+                                         bool vec) {
+  if (vec) {
+    if constexpr (kIsBf16<S>) {
+      const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(v[0]),
+                                                   __float2bfloat16_rn(v[1]));
+      const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(v[2]),
+                                                   __float2bfloat16_rn(v[3]));
+      *reinterpret_cast<uint2*>(p + k) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                                    *reinterpret_cast<const unsigned*>(&hi));
+    } else {
+      *reinterpret_cast<float4*>(p + k) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < kV; ++t) {
+    if (t < n) st(p, k + t, v[t]);
   }
 }
 

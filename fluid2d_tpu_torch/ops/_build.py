@@ -38,9 +38,9 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry points: argument types, in order. A "_bf16" twin takes the same
-# arguments with bf16 field pointers, plus the float scratch it names; an
-# entry point without one takes a bf16 storage flag.
+# C entry points: argument types, in order. A phase kernel's entry point
+# takes a bf16 storage flag; a probe with a "_bf16" twin has one entry point
+# per storage type, the twin taking the same arguments with bf16 pointers.
 _SIGNATURES = {
     # p_cur, p_alt, u, w, pbc_code, fluid8, p_out, p_bc, v_lim, X, Y, n_iters,
     # bf16 storage, in_bf16, out_bf16, omega, 1-omega, dx, 1/(8·dt), v_limit,
@@ -53,17 +53,12 @@ _SIGNATURES = {
     "f2d_cip_velocity_phase": [_P] * 17 + [_I] * 3 + [_F] * 8 + [_P],
     # 11 inputs, 6 outputs, X, Y, C, bf16 storage, constants as above, stream
     "f2d_cip_dye_phase": [_P] * 17 + [_I] * 4 + [_F] * 8 + [_P],
-    # p_cur, p_alt, u, w, pbc_code, not_wall8, p_out, p_bc, 2 scratch, v_lim,
-    # X, Y, n_iters, dx, 1/(8·dt), v_limit, stream
-    "f2d_jacobi_iteration": [_P] * 11 + [_I] * 3 + [_F] * 3 + [_P],
-    # p_cur, p_alt, u, w, pbc_code, not_wall8, p_out, p_bc, p_out32, p_bc32,
-    # 2 scratch, v_lim, X, Y, n_iters, in_bf16, out_bf16, dx, 1/(8·dt),
-    # v_limit, stream
-    "f2d_jacobi_iteration_bf16": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
-    # v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc (bf16: + v_bc32),
-    # X, Y, kk, dt, 1/dx, 1/dx or 1/(6dx), 1/dx², 1/re, stream
-    "f2d_mac_velocity_phase": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_P],
-    "f2d_mac_velocity_phase_bf16": [_P] * 9 + [_I] * 3 + [_F] * 5 + [_P],
+    # p_cur, p_alt, u, w, pbc_code, not_wall8, p_out, p_bc, v_lim, X, Y,
+    # n_iters, bf16 storage, in_bf16, out_bf16, dx, 1/(8·dt), v_limit, stream
+    "f2d_jacobi_iteration": [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P],
+    # v, p, v_alt, bc_const, vbc_code, fluid8, v_out, v_bc, X, Y, kk, bf16
+    # storage, dt, 1/dx, 1/dx or 1/(6dx), 1/dx², 1/re, stream
+    "f2d_mac_velocity_phase": [_P] * 8 + [_I] * 4 + [_F] * 5 + [_P],
     # dye, dye_alt, vel, bc_dye, inflow8, fluid8, d_out, d_bc, X, Y, C, kk,
     # bf16 storage, dt, 1/dx or 1/(6dx), stream
     "f2d_mac_dye_phase": [_P] * 8 + [_I] * 5 + [_F] * 2 + [_P],

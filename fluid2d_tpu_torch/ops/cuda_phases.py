@@ -50,15 +50,20 @@ Source notes.
 
 ``mac_velocity_phase_cuda``
   Replaces ``pallas_phases.py:mac_velocity_phase_pallas`` (core
-  ``_mac_velocity_core``). Kernel ``csrc/mac_phases.cu``: two launches,
-  velocity BC (the new alternate, an output), then the upwind or KK
-  momentum update at fluid cells reading the BC'd field with clamped
-  indices. Bound: bytes — reads v, v_alt, bc_const, p and two int8 planes,
-  writes two (2, X, Y) outputs, ~40 (upwind) to ~60 (KK) flops per cell.
-  What its simple design does about the bound: nothing yet. One thread per
-  cell, ``threadIdx.x`` along the contiguous Y axis (coalesced), neighbours
-  read from global memory with clamp-to-edge index math, the BC'd field
-  written to device memory and read back by the second launch.
+  ``_mac_velocity_core``). Kernel ``csrc/mac_phases.cu``
+  ``mac_velocity_fused_kernel``: one launch; a block copies both velocity
+  channels of a 32×32 tile + 3 (upwind) or + 4 (KK) and the pressure on the
+  tile + 1 into float windows, applies the velocity BC on the tile + 1 or
+  + 2 at each entry's clamped cell (in place at the cells with a code,
+  every entry evaluated before any is stored), then runs the upwind or KK
+  momentum update on the tile at fluid cells and takes the old alternate
+  elsewhere. Bound: bytes — reads v, p and two int8 planes,
+  v_alt and bc_const at the cells that need them, writes two (2, X, Y)
+  outputs, ~40 (upwind) to ~60 (KK) flops per cell and channel. What the
+  design does about it: the BC'd field is not written and read back (the
+  two-launch design did, through a float scratch plane at bf16), the
+  operands arrive in aligned 16-byte chunks and the outputs leave as 4-cell
+  vector stores.
 
 ``mac_dye_phase_cuda``
   Replaces ``pallas_phases.py:mac_dye_phase_pallas``. Kernel
@@ -78,11 +83,10 @@ Storage. The state's planes, the scene's ``bc_const`` / ``bc_dye`` and the
 outputs are float32 or bfloat16, one dtype per call (the transport dtype);
 arithmetic is float32 and each output is rounded once, where the plain
 version's ``.to(sd)`` rounds it. A stage result that a later stage reads
-stays float32 (the fused kernels' shared-memory windows; the MAC velocity
-phase's float scratch at bf16, ``csrc/common.cuh``), so the bf16 kernels
-are bit-identical to the plain versions wherever the float32 ones are. The
-CIP phases, confinement and the MAC dye phase take a storage flag; the MAC
-velocity phase has one C entry point per storage type.
+stays float32 (the fused kernels' shared-memory windows,
+``csrc/common.cuh``), so the bf16 kernels are bit-identical to the plain
+versions wherever the float32 ones are. Each C entry point takes a storage
+flag.
 
 Each wrapper takes CPU tensors to its plain version and launches its
 kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
@@ -104,7 +108,6 @@ from fluid2d_tpu_torch.ops.cip import (
 )
 from fluid2d_tpu_torch.ops.launch import (
     bf16_storage,
-    entry,
     launch,
     log_traffic,
     on_cpu,
@@ -176,15 +179,6 @@ def _cip_constants(re: float, dt: float, dx: float) -> tuple[float, ...]:
     """The grid constants of ``csrc/cip_advect.cuh:CipConsts``, in order,
     rounded as the eager path rounds them."""
     return (dt, dx, dx**2, dx**3, recip32(dx), recip32(dx**2), recip32(re), recip32(2.0 * dx))
-
-
-def _wide_scratch(shape, sd, dev, n: int) -> list[torch.Tensor]:
-    """The `n` float planes the bf16 MAC velocity phase keeps beside its rounded outputs
-    for its later launches to read (none at float32, where the outputs are
-    those planes). The caller holds them until the launch is queued."""
-    if sd == torch.float32:
-        return []
-    return [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(n)]
 
 
 def _advect_phase(f_na, gx_na, gy_na, vel, alt_f, alt_gx, alt_gy, fluid, dt, dx):
@@ -361,9 +355,9 @@ def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: floa
     if on_cpu(v, "mac_velocity_phase_cuda"):
         return mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx)
     dev, sd = v.device, v.dtype
+    bf16 = bf16_storage("mac_velocity_phase_cuda", sd)
     _, x_rows, y_cols = v.shape
-    vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
-    name, i8 = entry("f2d_mac_velocity_phase", sd), torch.int8
+    vec, plane, i8 = (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
     ptrs = [
         require(v, "v", vec, sd, dev),
         require(p, "p", plane, sd, dev),
@@ -374,9 +368,8 @@ def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: floa
     ]
     v_out = torch.empty_like(v)
     v_bc = torch.empty_like(v)
-    bc32 = _wide_scratch(vec, sd, dev, 1)
-    launch(name, dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(), *(t.data_ptr() for t in bc32),
-           x_rows, y_cols, int(scheme == "kk"), dt, recip32(dx), _inv_adv(scheme, dx),
+    launch("f2d_mac_velocity_phase", dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(), x_rows,
+           y_cols, int(scheme == "kk"), bf16, dt, recip32(dx), _inv_adv(scheme, dx),
            recip32(dx**2), recip32(re))
     mac_velocity_phase_cuda.launches += 1
     return v_out, v_bc

@@ -36,18 +36,22 @@ Source notes.
   Replaces: ``fluid2d_tpu/ops/pallas_stencil.py:jacobi_iteration_pallas``
   (kernel ``_jacobi_kernel``): up to four fused Jacobi iterations, the
   limiter folded into the last.
-  Kernel: ``fluid2d_tpu_torch/csrc/jacobi.cu``, one thread per cell, two
-  launches per iteration (BC out of place, then the sweep over every
-  not-wall cell; the limiter rides the last sweep). The BC, ``predict_p``
-  and the limiter are the cell rules of ``csrc/pressure.cuh``, shared with
-  SOR.
-  Bound on the H100: bytes, as SOR: per iteration it reads p, p_alt, u, w
-  and two int8 planes and writes two planes, ~25 flops per cell.
-  What the design does about it: nothing yet. The Pallas kernel keeps all
-  iterations of a call in VMEM with a 2-row halo per iteration; here every
-  iteration's pair goes through device memory (mostly L2 at 3200×1600,
-  20 MB per plane). Fusing the iterations with a per-tile halo is later
-  work.
+  Kernel: ``fluid2d_tpu_torch/csrc/jacobi.cu`` ``jacobi_fused_kernel``, one
+  launch a call, in the fused SOR's design: a block runs the BC and the
+  sweep of every iteration on a 32×32 tile, each stage's values in a
+  shared-memory window (p_cur on the tile + 2·n_iters; two windows taken in
+  turn, an iteration's BC applied in place at the cells with a code and its
+  sweep written to the other window, which holds the alt values), the halo
+  recomputed per tile; p_alt read from device memory at the first sweep's
+  wall cells only; the limiter rides the last stores. The BC, ``predict_p`` and the
+  limiter are the cell rules of ``csrc/pressure.cuh``, shared with SOR.
+  Bound on the H100: bytes, as SOR: a call reads p, u, w and two int8
+  planes (p_alt at the wall cells) and writes two planes (four with the
+  limiter), ~25 flops per cell and iteration. What the design does about
+  it: no stage result and no pair between the iterations goes through
+  device memory (the two-launch-an-iteration design wrote and re-read
+  every BC'd and swept plane), the operands arrive in aligned 16-byte
+  chunks and the outputs leave as 4-cell vector stores.
 
 ``cip_advect_cuda`` (C1)
   Replaces: ``fluid2d_tpu/ops/pallas_stencil.py:948 cip_advect_pallas``
@@ -169,10 +173,6 @@ def _ptr(t: torch.Tensor | None) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _scratch(shape, dev, wanted: bool):
-    return torch.empty(shape, dtype=torch.float32, device=dev) if wanted else None
-
-
 class _SorMasks:
     """The three scene leaves ``sor_pressure_iteration`` reads, rebuilt
     from the kernel's operands (parity is the global (i + j) % 2)."""
@@ -291,7 +291,7 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
                           n_iters: int = 1, v_limit: float | None = None,
                           out_dtype: torch.dtype | None = None):
     """`n_iters` (1..4) Jacobi iterations (pressure BC, then the sweep of
-    every not-wall cell) in one kernel run, with the velocity-norm limiter
+    every not-wall cell) in one launch, with the velocity-norm limiter
     folded in when `v_limit` is given; the pair is returned as `out_dtype`
     (default: p_cur's), one link of a chain (module notes).
 
@@ -321,27 +321,18 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
     ]
     p_out = torch.empty(plane, dtype=out_dt, device=dev)
     p_bc = torch.empty_like(p_out)
-    # The scratch pair holds the iterations of the other parity than the last.
-    scratch = [_scratch(plane, dev, n_iters > 1) for _ in range(2)]
     v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
-    consts = (dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
-    if sd == torch.float32:
-        launch("f2d_jacobi_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(),
-               *(_ptr(t) for t in scratch), _ptr(v_lim), x_rows, y_cols, n_iters, *consts)
-    else:
-        # A bf16 pair returned is rounded from float planes kept beside it.
-        narrow = out_dt != torch.float32
-        wide = [_scratch(plane, dev, True) if narrow else t for t in (p_out, p_bc)]
-        launch("f2d_jacobi_iteration_bf16", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(),
-               *(t.data_ptr() for t in wide), *(_ptr(t) for t in scratch), _ptr(v_lim),
-               x_rows, y_cols, n_iters, int(in_dt != torch.float32), int(narrow), *consts)
+    launch("f2d_jacobi_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(), _ptr(v_lim),
+           x_rows, y_cols, n_iters, bf16_storage("jacobi_iteration_cuda", sd),
+           int(in_dt != torch.float32), int(out_dt != torch.float32),
+           dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
     jacobi_iteration_cuda.launches += 1
     if v_lim is None:
         return p_out, p_bc
     return p_out, p_bc, v_lim
 
 
-jacobi_iteration_cuda.launches = 0  # kernel runs (two __global__ launches per iteration each)
+jacobi_iteration_cuda.launches = 0  # kernel runs (one __global__ launch each)
 
 
 # --- C1: standalone CIP advection ---------------------------------------------------

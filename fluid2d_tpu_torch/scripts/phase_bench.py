@@ -12,8 +12,10 @@ kernel:
   cip_velocity_phase  A3
   cip_dye_phase       A4
   jacobi_n2           B1: two Jacobi iterations with the limiter, one call
+  jacobi_n4           B1: four Jacobi iterations, one call (the first call of
+                      a six-iteration solve)
 then, at both dtypes, the kernels that share the phases' per-cell functions
-(C1's dye form, B2 upwind, B3 upwind and KK); the C3 twins of the mixes the
+(C1's dye form, B2 and B3 upwind and KK); the C3 twins of the mixes the
 tree registers (``mix_twin``: the same bytes read once at reach 0) and the
 C5f dye-mix twin at reach 1; the probes, each beside the one PyTorch call of
 the same function on the same float32 plane (``probes_ms``), the plane
@@ -26,8 +28,10 @@ the same function on the same float32 plane (``probes_ms``), the plane
   row_copy_tail_<dtype>  C5b's tail copy of rows [8, 24) of a (256, 256)
                       float32 or bf16 plane to float32
                       (``out.copy_(x[8:24])``, which widens bf16 too)
-and the steps/s (``bench.bench_config``, scene 2, both dtypes) of the
-headline (res CIP) and of the MAC schemes (res upwind and KK). Each kernel's
+and the steps/s (scene 2, both dtypes) of the headline (res CIP), of the
+MAC schemes (res upwind and KK; ``bench.bench_config``), of the Jacobi
+solver (res CIP with 2 and 6 Jacobi iterations) and of presets 1 and 2
+(``bench.run_preset``). Each kernel's
 bound is the bytes its function needs on the scene
 (``utils/profiling.py:needed_bytes``: the registered mix's, with each
 alternate and scene constant counted at the cells that read it) at the card's
@@ -57,8 +61,8 @@ from pathlib import Path
 
 import torch
 
-from fluid2d_tpu_torch import SimConfig, get_scene, scene_for_dtype
-from fluid2d_tpu_torch.bench import bench_config, resolve_device
+from fluid2d_tpu_torch import SimConfig, get_scene, init_state, make_run_fn, scene_for_dtype
+from fluid2d_tpu_torch.bench import bench_config, resolve_device, run_preset
 from fluid2d_tpu_torch.models.common import update_pressure_and_limit
 from fluid2d_tpu_torch.ops import cuda_dtype_probes, cuda_phases, cuda_probes, cuda_stencil
 from fluid2d_tpu_torch.utils import profiling
@@ -70,8 +74,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Each timed call's registered operand mix, from which its bound is taken.
 BOUND_MIX = {"sor_pair": "sor_iteration_n2_v_limit", "confinement": "confinement",
              "cip_velocity_phase": "cip_velocity_phase", "cip_dye_phase": "cip_dye_phase",
-             "jacobi_n2": "jacobi_iteration_n2_v_limit", "cip_advect": "cip_advect",
+             "jacobi_n2": "jacobi_iteration_n2_v_limit", "jacobi_n4": "jacobi_iteration_n4",
+             "cip_advect": "cip_advect",
              "mac_velocity_phase_upwind": "mac_velocity_phase_upwind",
+             "mac_velocity_phase_kk": "mac_velocity_phase_kk",
              "mac_dye_phase_upwind": "mac_dye_phase_upwind",
              "mac_dye_phase_kk": "mac_dye_phase_kk"}
 TWIN_MIXES = ("cip_velocity_phase", "cip_dye_phase", "sor_iteration_n2_v_limit", "confinement",
@@ -103,7 +109,8 @@ def median_ms(fn, calls: int = TIMED_CALLS) -> float:
 
 def phase_calls(res: int, dtype: torch.dtype, dev) -> dict[str, tuple]:
     """{name: (wrapper, plain version, args)} for A1's step pair, A2, A3, A4
-    and B1 on seeded fields of scene 2 at `dtype`, the inputs of
+    and B1 (two iterations with the limiter, four without) on seeded fields
+    of scene 2 at `dtype`, the inputs of
     chip_smoke.py's kernel phase."""
     dname = str(dtype).removeprefix("torch.")
     cfg = SimConfig.create(resolution=res, dtype=dname)
@@ -125,6 +132,7 @@ def phase_calls(res: int, dtype: torch.dtype, dev) -> dict[str, tuple]:
                                v_limit=cfg.velocity_limit)
     jacobi_plain = functools.partial(cuda_stencil.jacobi_iteration_plain, n_iters=2,
                                      v_limit=cfg.velocity_limit)
+    jargs = (p, pa, fast[0], fast[1], scene.pbc_code, scene.not_wall8, cfg.dt, cfg.dx)
     return {
         "sor_pair": (functools.partial(update_pressure_and_limit, cfg=cfg),
                      functools.partial(update_pressure_and_limit, cfg=eager),
@@ -136,16 +144,16 @@ def phase_calls(res: int, dtype: torch.dtype, dev) -> dict[str, tuple]:
                                (v, p, va, *vg, scene, *consts)),
         "cip_dye_phase": (cuda_phases.cip_dye_phase_cuda, cuda_phases.cip_dye_phase_plain,
                           (dye, da, *dg, v, scene, *consts)),
-        "jacobi_n2": (jacobi, jacobi_plain,
-                      (p, pa, fast[0], fast[1], scene.pbc_code, scene.not_wall8, cfg.dt,
-                       cfg.dx)),
+        "jacobi_n2": (jacobi, jacobi_plain, jargs),
+        "jacobi_n4": (functools.partial(cuda_stencil.jacobi_iteration_cuda, n_iters=4),
+                      functools.partial(cuda_stencil.jacobi_iteration_plain, n_iters=4), jargs),
     }
 
 
 def shared_calls(res: int, dev, dtype: torch.dtype = torch.float32) -> dict[str, tuple]:
     """{name: (wrapper, args)} at `dtype` for the kernels that share the
-    phases' per-cell functions: C1 (its dye form), B2 (upwind) and B3
-    (upwind and KK)."""
+    phases' per-cell functions: C1 (its dye form), B2 and B3 (upwind and
+    KK)."""
     dname = str(dtype).removeprefix("torch.")
     cfg = SimConfig.create(resolution=res, dtype=dname)
     scene = scene_for_dtype(get_scene(2, res, dev), cfg)
@@ -160,9 +168,10 @@ def shared_calls(res: int, dev, dtype: torch.dtype = torch.float32) -> dict[str,
         "cip_advect": (cuda_stencil.cip_advect_cuda,
                        (dye, rnd((3,), 0.1), rnd((3,), 0.1), v, *(rnd((3,), 0.5) for _ in range(3)),
                         scene.fluid8, cfg.dt, cfg.dx)),
-        "mac_velocity_phase_upwind": (cuda_phases.mac_velocity_phase_cuda,
-                                      (v, p, rnd((2,), 0.5), scene, "upwind", cfg.re, cfg.dt,
-                                       cfg.dx)),
+        **{f"mac_velocity_phase_{scheme}": (cuda_phases.mac_velocity_phase_cuda,
+                                            (v, p, rnd((2,), 0.5), scene, scheme, cfg.re,
+                                             cfg.dt, cfg.dx))
+           for scheme in ("upwind", "kk")},
         **{f"mac_dye_phase_{scheme}": (cuda_phases.mac_dye_phase_cuda,
                                        (dye, rnd((3,), 0.5, 0.5), v, scene, scheme, cfg.dt,
                                         cfg.dx))
@@ -243,6 +252,17 @@ def twin_ms(res: int, calls: int, dev) -> dict:
     return out
 
 
+def jacobi_steps_per_s(res: int, n_iters: int, steps: int, dtype: str, dev) -> float:
+    """Steps/s of res CIP on scene 2 with `n_iters` Jacobi iterations, timed
+    as ``bench.bench_config`` times a configuration."""
+    cfg = SimConfig.create(resolution=res, pressure_solver="jacobi", n_pressure_iter=n_iters,
+                           dtype=dtype)
+    scene = scene_for_dtype(get_scene(2, res, dev), cfg)
+    sec_per_step, _ = profiling.time_steps(make_run_fn(cfg), init_state(scene, cfg, dev), scene,
+                                           steps)
+    return 1.0 / sec_per_step
+
+
 def smi_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -265,6 +285,11 @@ def measure(res: int, calls: int, steps: int, probes_only: bool = False) -> dict
     result["mac_steps_per_s"] = {
         f"{scheme}_{dname}": bench_config(res, scheme, steps, dtype=dname, device=dev)[0]
         for scheme in ("upwind", "kk") for dname in DTYPES}
+    result["jacobi_steps_per_s"] = {
+        f"cip_jacobi{n}_{dname}": jacobi_steps_per_s(res, n, steps, dname, dev)
+        for n in (2, 6) for dname in DTYPES}
+    result["preset_steps_per_s"] = {f"preset{n}_{dname}": run_preset(n, dname)["value"]
+                                    for n in (1, 2) for dname in DTYPES}
     return result
 
 

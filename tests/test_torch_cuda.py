@@ -30,12 +30,17 @@ functions, bit-equal on those scenes too. The fused SOR (one and two
 iterations, with and without the limiter, on every pair link) and the fused
 confinement bit-equal at float32 and bf16 on the same grids and on an open
 scene (fluid to the grid's edge), with one launch and only the outputs
-allocated; the Jacobi kernel (B1), which shares the pressure cell rules,
-bit-equal there too. The fused MAC dye phase (B3, one launch on tiles with
-a recomputed halo of 1 or 2) bit-equal for both schemes at float32 and bf16
-on the same grids, an open scene with inflow to its edge and 3200×1600,
-with one launch and two output allocations (no scratch); its one entry
-point refuses what the two per-dtype ones refused.
+allocated. The fused Jacobi iteration (B1, one launch a call of 1..4
+iterations, with and without the limiter, on every pair link) bit-equal on
+the same grids and an open scene with every pressure BC code on its edge,
+with one launch and only the outputs allocated. The fused MAC dye phase
+(B3, one launch on tiles with a recomputed halo of 1 or 2) bit-equal for
+both schemes at float32 and bf16 on the same grids, an open scene with
+inflow to its edge and 3200×1600, with one launch and two output
+allocations (no scratch); its one entry point refuses what the two
+per-dtype ones refused. The fused MAC velocity phase (B2, one launch: the
+pre-BC velocity on the tile + 3 or + 4, the BC'd on + 1 or + 2) the same,
+on an open scene with every velocity BC code on its edge.
 
 The standalone CIP advection (C1) bit-equal at float32 and bf16; the FMA
 sweep (C5d) within ``fma_rate_error_bound`` of the float64 plain version,
@@ -639,18 +644,32 @@ SOR_LINKS = {"f32": (torch.float32, None, None), "bf16_bf16": (torch.bfloat16, N
 TILE_GRIDS = {**FUSED_GRIDS, "open": (None, 37), "open_chunk_rows": (None, 36)}
 
 
+def _edge_codes(shape, codes: int, device) -> torch.Tensor:
+    """int8 codes 1..codes in turn along the first and last rows and
+    columns of `shape`, 0 inside: every code of a BC at the grid's edge."""
+    x, y = shape
+    code = torch.zeros(shape, dtype=torch.int8)
+    cyc = torch.arange(2 * (x + y)) % codes + 1
+    code[0], code[-1] = cyc[:y], cyc[1:y + 1]
+    code[:, 0], code[:, -1] = cyc[2:x + 2], cyc[3:x + 3]
+    return code.to(device)
+
+
 def _pressure_call(bc, res, dtype, device):
     """Seeded (p, p_alt, u, w, v, v_alt) and (cfg, pbc_code, fluid8,
-    not_wall8) of scene `bc` at `res` (None: the open scene) in `dtype`."""
+    not_wall8) of scene `bc` at `res` in `dtype`; None: the open scene (no
+    BC), "edge": the open scene with the pressure BC codes 1..10 on its
+    edge."""
     cfg = SimConfig.create(resolution=res, dtype=str(dtype).removeprefix("torch."))
-    if bc is None:
+    if bc in (None, "edge"):
         shape = (2 * res, res)
-        code = torch.zeros(shape, dtype=torch.int8, device=device)
+        code = (torch.zeros(shape, dtype=torch.int8, device=device) if bc is None
+                else _edge_codes(shape, 10, device))
         fluid = not_wall = torch.ones(shape, dtype=torch.int8, device=device)
     else:
         sc = get_scene(bc, res, device)
         shape, code, fluid, not_wall = sc.shape, sc.pbc_code, sc.fluid8, sc.not_wall8
-    gen = torch.Generator(device="cpu").manual_seed(20 * (bc or 0) + res)
+    gen = torch.Generator(device="cpu").manual_seed(20 * (bc if isinstance(bc, int) else 0) + res)
 
     def rnd(lead, scale):
         return (scale * torch.randn((*lead, *shape), generator=gen)).to(dtype).to(device)
@@ -702,20 +721,57 @@ def test_cuda_fused_confinement_bit_equal_to_plain(cuda_device, grid, dtype):
     _assert_bit_equal(got, cuda_phases.confinement_plain(*args), "confinement")
 
 
+# The fused Jacobi iteration (B1: one launch a call of 1..4 iterations) on
+# the fused SOR's grids and an open scene with every pressure BC code on its
+# edge, where the BC'd entries past the grid decide the edge cells.
+JACOBI_GRIDS = {**TILE_GRIDS, "open_edge_codes": ("edge", 37)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n_iters", [2, 4])
-@pytest.mark.parametrize("grid", TILE_GRIDS.values(), ids=TILE_GRIDS.keys())
-def test_cuda_jacobi_shares_the_pressure_rules_bit_equal(cuda_device, grid, n_iters, dtype):
-    """B1 reads the pressure BC, the prediction and the limiter from the
-    cell rules the fused SOR evaluates on windows: bit-equal to its plain
-    version on the same grids."""
-    (p, pa, u, w, _, _), (cfg, code, _, not_wall) = _pressure_call(*grid, dtype, cuda_device)
+@pytest.mark.parametrize("v_limit", [None, 10.0], ids=["plain", "v_limit"])
+@pytest.mark.parametrize("n_iters", [1, 2, 3, 4])
+@pytest.mark.parametrize("link", SOR_LINKS)
+@pytest.mark.parametrize("grid", JACOBI_GRIDS.values(), ids=JACOBI_GRIDS.keys())
+def test_cuda_fused_jacobi_bit_equal_to_plain(cuda_device, grid, link, n_iters, v_limit):
+    """One launch, only the outputs allocated, every output equal to the
+    plain version's to the bit."""
+    state, pair_in, pair_out = SOR_LINKS[link]
+    (p, pa, u, w, _, _), (cfg, code, _, not_wall) = _pressure_call(*grid, state, cuda_device)
+    if pair_in is not None:
+        p, pa = p.to(pair_in), pa.to(pair_in)
     args = (p, pa, u, w, code, not_wall, cfg.dt, cfg.dx)
-    kw = {"n_iters": n_iters, "v_limit": cfg.velocity_limit}
-    got = cuda_stencil.jacobi_iteration_cuda(*args, **kw)
+    kw = {"n_iters": n_iters, "v_limit": v_limit, "out_dtype": pair_out}
+    wrapper = cuda_stencil.jacobi_iteration_cuda
+    before, allocs = wrapper.launches, _allocations(cuda_device)
+    got = wrapper(*args, **kw)
     torch.cuda.synchronize()
-    _assert_bit_equal(got, cuda_stencil.jacobi_iteration_plain(*args, **kw), f"jacobi{n_iters}")
+    assert wrapper.launches == before + 1
+    assert _allocations(cuda_device) - allocs == len(got)
+    _assert_bit_equal(got, cuda_stencil.jacobi_iteration_plain(*args, **kw),
+                      f"jacobi{n_iters}_{link}")
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_entry_refuses_wrong_operands(cuda_device):
+    """The one storage-flag entry point refuses an iteration count outside
+    1..4, pairs other than the velocity's dtype or float32, and mixed pair
+    dtypes; nothing is launched."""
+    (p, pa, u, w, _, _), (cfg, code, _, not_wall) = _pressure_call(2, 37, torch.bfloat16,
+                                                                    cuda_device)
+    wrapper = cuda_stencil.jacobi_iteration_cuda
+    before = wrapper.launches
+    args = (code, not_wall, cfg.dt, cfg.dx)
+    with pytest.raises(ValueError, match="1..4"):
+        wrapper(p, pa, u, w, *args, n_iters=5)
+    with pytest.raises(TypeError, match="p_cur"):
+        wrapper(p.half(), pa.half(), u, w, *args)
+    with pytest.raises(TypeError, match="p_alt"):
+        wrapper(p, pa.float(), u, w, *args)
+    with pytest.raises(TypeError, match="u, w"):
+        wrapper(p, pa, u, w.float(), *args)
+    with pytest.raises(ValueError, match="shape"):
+        wrapper(p, pa, u, w, code[:, :-1].contiguous(), not_wall, cfg.dt, cfg.dx)
+    assert wrapper.launches == before
 
 
 # The fused MAC dye phase (B3: one launch a call on tiles with a recomputed
@@ -800,6 +856,74 @@ def test_cuda_mac_dye_entry_refuses_wrong_operands(cuda_device, dtype):
         wrapper(dye, dye_alt.cpu(), vel, sc, scheme, dt, dx)
     with pytest.raises(ValueError, match="scheme"):
         wrapper(dye, dye_alt, vel, sc, "cip", dt, dx)
+    assert wrapper.launches == before
+
+
+# The fused MAC velocity phase (B2: one launch a call; the pre-BC velocity
+# on the tile + 3 or + 4, the BC'd on + 1 or + 2) on the MAC dye phase's
+# grids; its open scene is fluid to the edge with every velocity BC code
+# (ghost mirrors, inflow, outflow) on the first and last rows and columns.
+def _mac_velocity_call(bc, res, dtype, scheme, device):
+    """Seeded (v, p, v_alt, scene, scheme, re, dt, dx) of scene `bc` at
+    `res` (None: the open scene) in `dtype`."""
+    cfg = SimConfig.create(resolution=res, re=1000.0, dtype=str(dtype).removeprefix("torch."))
+    sc = scene_for_dtype(get_scene(2 if bc is None else bc, res, device), cfg)
+    gen = torch.Generator(device="cpu").manual_seed(40 * (bc or 7) + res)
+
+    def rnd(lead, scale, offset=0.0):
+        t = offset + scale * torch.randn((*lead, *sc.shape), generator=gen)
+        return t.to(dtype).to(device)
+
+    if bc is None:
+        code = _edge_codes(sc.shape, 6, device)
+        fluid = torch.ones(sc.shape, dtype=torch.bool, device=device)
+        sc = sc._replace(vbc_code=code, vbc_targets=torch.stack([code == k for k in range(1, 5)]),
+                         inflow=code == 5, outflow=code == 6, fluid=fluid,
+                         fluid8=fluid.to(torch.int8), bc_const=rnd((2,), 1.0))
+    return rnd((2,), 3.0), rnd((), 0.3), rnd((2,), 0.5), sc, scheme, cfg.re, cfg.dt, cfg.dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scheme", ["upwind", "kk"])
+@pytest.mark.parametrize("grid", MAC_DYE_GRIDS.values(), ids=MAC_DYE_GRIDS.keys())
+def test_cuda_fused_mac_velocity_bit_equal_to_plain(cuda_device, grid, scheme, dtype):
+    """One launch, two output allocations (no float scratch at bf16), both
+    outputs equal to the plain version's to the bit."""
+    args = _mac_velocity_call(*grid, dtype, scheme, cuda_device)
+    wrapper = cuda_phases.mac_velocity_phase_cuda
+    before, allocs = wrapper.launches, _allocations(cuda_device)
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert _allocations(cuda_device) - allocs == 2
+    _assert_bit_equal(got, cuda_phases.mac_velocity_phase_plain(*args), f"mac_velocity_{scheme}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_mac_velocity_entry_refuses_wrong_operands(cuda_device, dtype):
+    """The one storage-flag entry point refuses what the two per-dtype ones
+    refused: another storage dtype, operands of mixed dtypes, shapes,
+    devices or layouts, and an unknown scheme; nothing is launched."""
+    v, p, v_alt, sc, scheme, re, dt, dx = _mac_velocity_call(2, 37, dtype, "kk", cuda_device)
+    wrapper = cuda_phases.mac_velocity_phase_cuda
+    before = wrapper.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        wrapper(v.half(), p.half(), v_alt.half(), sc, scheme, re, dt, dx)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(TypeError, match="dtype"):
+        wrapper(v, p.to(other), v_alt, sc, scheme, re, dt, dx)
+    with pytest.raises(TypeError, match="dtype"):
+        wrapper(v, p, v_alt.to(other), sc, scheme, re, dt, dx)
+    with pytest.raises(ValueError, match="shape"):
+        wrapper(v, p[:, :-1].contiguous(), v_alt, sc, scheme, re, dt, dx)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(v, p, v_alt.transpose(1, 2).contiguous().transpose(1, 2), sc, scheme, re, dt, dx)
+    with pytest.raises(ValueError, match="on cpu"):
+        wrapper(v, p.cpu(), v_alt, sc, scheme, re, dt, dx)
+    with pytest.raises(ValueError, match="scheme"):
+        wrapper(v, p, v_alt, sc, "cip", re, dt, dx)
     assert wrapper.launches == before
 
 

@@ -1,30 +1,37 @@
-"""The fused SOR (A1) and confinement (A2) kernels' rules, held on the CPU.
+"""The fused SOR (A1), confinement (A2) and Jacobi (B1) kernels' rules,
+held on the CPU.
 
-``csrc/sor.cu`` runs one or two red-black SOR iterations in one launch and
-``csrc/confinement.cu`` the confinement in one launch, each a block a tile
-of output cells with every stage's values in a window one cell wider on
-every side than the next stage reads (SOR: the pressure on the tile
-+ 3·n_iters, then the BC, the odd and the even sweep a cell narrower each;
-confinement: the velocity on the tile + 2, the curl on + 1). A window entry
-at a cell outside the grid holds the stage's value at the clamped cell,
-computed there with that cell's parity. This file holds, with seeded NumPy
-inputs and no card:
+``csrc/sor.cu`` runs one or two red-black SOR iterations in one launch,
+``csrc/jacobi.cu`` one to four Jacobi iterations and ``csrc/confinement.cu``
+the confinement, each in one launch, a block a tile of output cells with
+every stage's values in a window one cell wider on every side than the next
+stage reads (SOR: the pressure on the tile + 3·n_iters, then the BC, the odd
+and the even sweep a cell narrower each; Jacobi: the pressure on the tile
++ 2·n_iters, then the BC and the sweep a cell narrower each, the caller's
+p_alt read at the first sweep's cells; confinement: the velocity on the
+tile + 2, the curl on + 1). A window entry at a cell outside the grid holds
+the stage's value at the clamped cell, computed there with that cell's
+parity and codes. This file holds, with seeded NumPy inputs and no card:
 
 (a) ``sor_iteration_plain(n_iters=2)``, with and without the limiter,
     against the JAX package's ``sor_iteration_pallas(n_iters=2)`` in
     interpret mode, at float32 and bf16;
-(b) one two-iteration call bit-equal to two chained one-iteration calls
-    (float32 between them), on every pair link;
+(b) one two-iteration SOR call bit-equal to two chained one-iteration calls
+    (float32 between them), on every pair link; a Jacobi call of n = 2..4
+    iterations bit-equal to n chained calls of one, on every pair link;
 (c) ``update_pressure_and_limit``, which pairs the iterations (1, 2 + 0,
     2 + 1, 2 + 2), bit-equal to the chain of one-iteration calls;
-(d) the tiling rule, emulated here with the eager ops on window tensors
-    tile by tile (not in the package: it checks the design before and
+(d) the tiling rules, emulated here with the eager ops on window tensors
+    tile by tile (not in the package: they check the designs before and
     beside the card), bit-equal to the plain versions on grids (74, 37) and
     (128, 64), for tiles of 4×8, 5×7 (odd origins), 8×32 and one larger
     than the grid, on scenes 2, 3 and 1 and an open scene (fluid to the
-    grid's edge, which the scenes do not reach). Negative controls, each of
-    which must differ: a halo one cell short, the parity taken at the
-    unclamped index, and the curl computed as if outside the grid.
+    grid's edge, which the scenes do not reach; for Jacobi also with every
+    pressure BC code on the edge), Jacobi at n = 1..4 with and without the
+    limiter and on every bf16 pair link. Negative controls, each of which
+    must differ: a halo one cell short, the parity taken at the unclamped
+    index, the curl computed as if outside the grid, and a Jacobi window
+    (the BC's or the sweep's) one cell short.
 """
 
 import numpy as np
@@ -39,7 +46,12 @@ from fluid2d_tpu_torch import SimConfig, get_scene, scene_for_dtype
 from fluid2d_tpu_torch.convert import scene_from_numpy
 from fluid2d_tpu_torch.models.common import update_pressure_and_limit
 from fluid2d_tpu_torch.ops.cuda_phases import confinement_plain
-from fluid2d_tpu_torch.ops.cuda_stencil import SOR_MAX_ITERS, sor_iteration_plain
+from fluid2d_tpu_torch.ops.cuda_stencil import (
+    JACOBI_MAX_ITERS,
+    SOR_MAX_ITERS,
+    jacobi_iteration_plain,
+    sor_iteration_plain,
+)
 from fluid2d_tpu_torch.ops.limiters import limit_vector_norm
 from fluid2d_tpu_torch.ops.pressure import predict_p
 from fluid2d_tpu_torch.ops.stencil import diff_x, diff_y, tmax, tmin
@@ -138,6 +150,29 @@ def test_two_iterations_equal_two_chained_calls(dtype, link, v_limit):
         sor_iteration_plain(p, pa, u, w, *args, n_iters=SOR_MAX_ITERS + 1)
 
 
+@pytest.mark.parametrize("v_limit", [None, LIMIT], ids=["plain", "v_limit"])
+@pytest.mark.parametrize("link", LINKS)
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
+def test_jacobi_call_equals_chained_calls_of_one(dtype, n, link, v_limit):
+    """A call of n Jacobi iterations gives n chained calls of one (float32
+    between them, the limiter on the last) to the bit."""
+    cfg, sc, (p, pa, u, w) = _pressure_inputs(dtype)
+    read, ret = LINKS[link]
+    if read is not None:
+        p, pa = p.to(read), pa.to(read)
+    out = dtype if ret is None else ret
+    args = (sc.pbc_code, sc.not_wall8, cfg.dt, cfg.dx)
+    got = jacobi_iteration_plain(p, pa, u, w, *args, n_iters=n, v_limit=v_limit, out_dtype=out)
+    pair = (p, pa)
+    for _ in range(n - 1):
+        pair = jacobi_iteration_plain(*pair, u, w, *args, out_dtype=torch.float32)
+    ref = jacobi_iteration_plain(*pair, u, w, *args, v_limit=v_limit, out_dtype=out)
+    assert _equal(got, ref)
+    with pytest.raises(ValueError, match=f"1..{JACOBI_MAX_ITERS}"):
+        jacobi_iteration_plain(p, pa, u, w, *args, n_iters=JACOBI_MAX_ITERS + 1)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
 def test_update_pressure_pairs_iterations_bit_equal_to_the_chain(dtype, n):
@@ -169,11 +204,26 @@ class _Open:
     def __init__(self, shape):
         self.shape = shape
         self.pbc_code = torch.zeros(shape, dtype=torch.int8)
-        self.fluid8 = torch.ones(shape, dtype=torch.int8)
+        self.fluid8 = self.not_wall8 = torch.ones(shape, dtype=torch.int8)
+
+
+class _OpenCodes(_Open):
+    """The open scene with the pressure BC codes 1..10 in turn along its
+    first and last rows and columns: the BC'd values at the clamped cells
+    decide the edge cells' sweeps."""
+
+    def __init__(self, shape):
+        super().__init__(shape)
+        x, y = shape
+        cyc = (torch.arange(2 * (x + y)) % 10 + 1).to(torch.int8)
+        self.pbc_code[0], self.pbc_code[-1] = cyc[:y], cyc[1:y + 1]
+        self.pbc_code[:, 0], self.pbc_code[:, -1] = cyc[2:x + 2], cyc[3:x + 3]
 
 
 def _scene(bc, res):
-    return _Open((2 * res, res)) if bc is None else get_scene(bc, res, "cpu")
+    if bc in (None, "codes"):
+        return (_Open if bc is None else _OpenCodes)((2 * res, res))
+    return get_scene(bc, res, "cpu")
 
 
 class _Tile:
@@ -299,7 +349,7 @@ def _assemble(shape, tile, dtypes, tile_fn):
 def _tile_inputs(bc, res, dtype):
     scene = _scene(bc, res)
     cfg = SimConfig.create(resolution=res)
-    rng = np.random.default_rng(100 * (bc or 0) + res)
+    rng = np.random.default_rng(100 * (bc if isinstance(bc, int) else 0) + res)
     shape = scene.shape
     p, pa, u, w = (torch.from_numpy(_rnd(rng, (), shape, s)).to(dtype)
                    for s in (0.3, 0.3, 8.0, 8.0))
@@ -390,3 +440,112 @@ def test_negative_control_differs(control):
         ref = plain_sor(scene, cfg, pressure, n_iters, v_limit)
         assert _equal(fused_sor(scene, cfg, pressure, n_iters, v_limit, (8, 32)), ref)
         assert not _equal(fused_sor(scene, cfg, pressure, n_iters, v_limit, (8, 32), **kw), ref)
+
+
+# --- the fused Jacobi iteration (B1) ---------------------------------------------
+
+
+def _jacobi_tile(t, n_iters, p, pa, u, w, scene, dt, dx, v_limit, short=None):
+    """One tile's outputs (float32, tile-shaped) by the fused cascade: the
+    pressure on the tile + 2·n_iters, the BC and the sweep each on a window
+    one cell narrower, evaluated at the clamped cells; the caller's p_alt at
+    the first sweep's cells, the previous BC after it. `short` = (stage,
+    iteration) names a window one cell too narrow."""
+    hh = 2 * n_iters
+    not_wall = scene.not_wall8 != 0
+    cur = t.gather(p, hh)
+    alt = t.gather(pa, hh - 2)
+    for it in range(n_iters):
+        h = hh - 2 * it
+        uw, ww = t.gather(u, h - 1), t.gather(w, h - 1)
+        # 1. BC on the tile + (h − 1)
+        bc = t.reclamp(_crop(pressure_bc(cur, _Codes(t.gather(scene.pbc_code, h)))), h - 1)
+        if short == ("bc", it):
+            bc = _short(bc)
+        # 2. the sweep on + (h − 2): the prediction at not-wall cells, alt elsewhere
+        cur = torch.where(t.gather(not_wall, h - 2),
+                          t.reclamp(_crop(predict_p(bc, uw, ww, dt, dx)), h - 2), alt)
+        if short == ("sweep", it):
+            cur = _short(cur)
+        alt = _crop(bc, 3)  # the next iteration's alt, on its sweep's + (h − 4)
+    out = (cur, _crop(bc))
+    if v_limit is not None:
+        out += (limit_vector_norm(torch.stack([t.gather(u, 0), t.gather(w, 0)]), v_limit),)
+    return out
+
+
+def fused_jacobi(scene, cfg, inputs, n_iters, v_limit, tile, out_dtype=None, **control):
+    p, pa, u, w = inputs
+    f = [a.float() for a in inputs]
+    dts = [out_dtype or p.dtype] * 2 + ([u.dtype] if v_limit is not None else [])
+    return _assemble(scene.shape, tile, dts, lambda t: _jacobi_tile(
+        t, n_iters, *f, scene, cfg.dt, cfg.dx, v_limit, **control))
+
+
+def plain_jacobi(scene, cfg, inputs, n_iters, v_limit, out_dtype=None):
+    return jacobi_iteration_plain(*inputs, scene.pbc_code, scene.not_wall8, cfg.dt, cfg.dx,
+                                  n_iters=n_iters, v_limit=v_limit, out_dtype=out_dtype)
+
+
+JACOBI_SCENES = {**SCENES, "open_codes": "codes"}
+JACOBI_TILES = [(4, 8), (5, 7), (256, 128)]
+
+
+@pytest.mark.parametrize("v_limit", [None, LIMIT], ids=["plain", "v_limit"])
+@pytest.mark.parametrize("n_iters", [1, 2, 3, 4])
+@pytest.mark.parametrize("tile", JACOBI_TILES, ids=[f"{a}x{b}" for a, b in JACOBI_TILES])
+@pytest.mark.parametrize("bc", JACOBI_SCENES.values(), ids=JACOBI_SCENES.keys())
+def test_fused_jacobi_tiles_bit_equal_to_plain(bc, tile, n_iters, v_limit):
+    scene, cfg, pressure, _ = _tile_inputs(bc, 37, torch.float32)
+    got = fused_jacobi(scene, cfg, pressure, n_iters, v_limit, tile)
+    ref = plain_jacobi(scene, cfg, pressure, n_iters, v_limit)
+    assert _equal(got, ref), [int((_bits(g) != _bits(r)).sum()) for g, r in zip(got, ref)]
+
+
+@pytest.mark.parametrize("n_iters", [1, 4])
+@pytest.mark.parametrize("bc", [2, "codes"], ids=["scene2", "open_codes"])
+def test_fused_jacobi_tiles_bit_equal_to_plain_128x64(bc, n_iters):
+    """The larger grid, whole 8×32 tiles."""
+    scene, cfg, pressure, _ = _tile_inputs(bc, 64, torch.float32)
+    got = fused_jacobi(scene, cfg, pressure, n_iters, LIMIT, (8, 32))
+    assert _equal(got, plain_jacobi(scene, cfg, pressure, n_iters, LIMIT))
+
+
+@pytest.mark.parametrize("v_limit", [None, LIMIT], ids=["plain", "v_limit"])
+@pytest.mark.parametrize("n_iters", [1, 2, 3, 4])
+@pytest.mark.parametrize("link", LINKS)
+def test_fused_jacobi_tiles_bit_equal_to_plain_bf16(link, n_iters, v_limit):
+    """At bf16 state every pair link: the windows hold the widened values,
+    the chain stays float32 inside a call and each output is rounded once,
+    at its store."""
+    scene, cfg, (p, pa, u, w), _ = _tile_inputs(3, 37, BF)
+    read, ret = LINKS[link]
+    if read is not None:
+        p, pa = p.to(read), pa.to(read)
+    out = BF if ret is None else ret
+    got = fused_jacobi(scene, cfg, (p, pa, u, w), n_iters, v_limit, (5, 7), out_dtype=out)
+    ref = plain_jacobi(scene, cfg, (p, pa, u, w), n_iters, v_limit, out_dtype=out)
+    assert got[0].dtype == out and _equal(got, ref)
+
+
+# negative controls: (scene, n_iters, short). The pressure BC reads a
+# neighbour only at coded cells, so a window short by one cell reaches a
+# tile's outputs through an earlier iteration only where codes meet a tile's
+# edge: along the grid's edge in the open scene with codes.
+JACOBI_CONTROLS = {
+    "bc_short_last_scene2": (2, 2, ("bc", 1)),
+    "bc_short_first_open_codes": ("codes", 3, ("bc", 0)),
+    "sweep_short_open_codes": ("codes", 2, ("sweep", 0)),
+    "sweep_short_n4_open_codes": ("codes", 4, ("sweep", 2)),
+    "bc_short_n1_open_codes": ("codes", 1, ("bc", 0)),
+}
+
+
+@pytest.mark.parametrize("control", JACOBI_CONTROLS)
+def test_jacobi_negative_control_differs(control):
+    bc, n_iters, short = JACOBI_CONTROLS[control]
+    scene, cfg, pressure, _ = _tile_inputs(bc, 37, torch.float32)
+    ref = plain_jacobi(scene, cfg, pressure, n_iters, None)
+    assert _equal(fused_jacobi(scene, cfg, pressure, n_iters, None, (8, 32)), ref)
+    assert not _equal(fused_jacobi(scene, cfg, pressure, n_iters, None, (8, 32), short=short),
+                      ref)

@@ -29,7 +29,7 @@ Phases, each printed as JSON lines:
              seeded random inputs: at float32 every output within
              1e-5·max(1, |ref|max) (in fact 0.0), the fused kernels (every
              phase kernel: the CIP and MAC phases, SOR, Jacobi,
-             confinement: BIT_EQUAL_F32) bit-equal; at bf16
+             confinement; and C1: BIT_EQUAL_F32) bit-equal; at bf16
              every variant (SOR: one and two iterations, with and without
              the limiter) and
              every pressure chain link (bf16→f32, f32→f32, f32→bf16,
@@ -99,7 +99,9 @@ Phases, each printed as JSON lines:
              probes C2–C4 must have launched.
 8. bf16 probes — the port's probe scripts through their entry points:
              vpu_dtype_probe (C5a, each mode, held to its plain version on
-             its timed inputs at 48 passes and at 3072), bf16_dma_probe (C5b, a FAIL
+             its timed inputs at 48 passes and at 3072; the fma mode's
+             float32 and bf16 ms each printed with its share of the
+             operation bound), bf16_dma_probe (C5b, a FAIL
              raises) and bf16_geometry_probe (C5c).
 9. last probes — C1 at the op level (cip_advect_cuda, both forms, float32
              and bf16, finite outputs of the input's shape and dtype) and the
@@ -113,7 +115,9 @@ Phases, each printed as JSON lines:
              Then, with the counts read, each new kernel held to its plain
              version on the inputs it times, and timed as phase 3 times
              (median_ms, behind a spin kernel), beside its library call
-             where one PyTorch call computes the function: the sweep's
+             where one PyTorch call computes the function: C1's four calls
+             bit-equal, each ms beside its bound (the bytes its form needs);
+             the sweep's
              8-chain case within its bound, with the one-round-short
              control; the geometry twin within 1e-5 at h = 0, 1 and 8, with
              channels; the row window bit-equal to 2·a and to its plain
@@ -232,13 +236,15 @@ TOY_SHAPES = ((32, 128), (8, 128), (2 * RES, RES))
 # The port's kernels as torch.profiler names them (phase 4, profile).
 PORT_KERNELS = ("cip_velocity_fused_kernel", "cip_dye_fused_kernel",
                 "confinement_fused_kernel", "sor_fused_kernel", "jacobi_fused_kernel",
-                "mac_velocity_fused_kernel", "mac_dye_fused_kernel")
+                "mac_velocity_fused_kernel", "mac_dye_fused_kernel",
+                "cip_advect_fused_kernel")
 # Device kernels of two headline steps that the profile phase counts exactly:
 # one fused launch a CIP phase, SOR and confinement call (one SOR call a step,
 # both iterations), none of the launches the fused SOR and confinement
 # replaced, and no standalone advection.
 PROFILE_COUNTS = {"cip_velocity_fused_kernel": 2, "cip_dye_fused_kernel": 2,
-                  "sor_fused_kernel": 2, "confinement_fused_kernel": 2, "advect_kernel": 0,
+                  "sor_fused_kernel": 2, "confinement_fused_kernel": 2,
+                  "cip_advect_fused_kernel": 0,
                   "sor_odd_kernel": 0, "sor_even_kernel": 0, "pressure_bc_kernel": 0,
                   "curl_kernel": 0, "confine_kernel": 0}
 # The same for two kk steps at res=1600: one fused launch a MAC velocity and
@@ -255,9 +261,10 @@ JACOBI_PROFILE_COUNTS = {"jacobi_fused_kernel": 2, "pressure_bc_kernel": 0,
                          "jacobi_sweep_kernel": 0, "cip_velocity_fused_kernel": 2,
                          "cip_dye_fused_kernel": 2, "confinement_fused_kernel": 2}
 # Kernels held to their plain versions bit for bit at float32 too (the others
-# within KERNEL_TOL, in fact 0.0): the fused ones, which are every phase kernel.
+# within KERNEL_TOL, in fact 0.0): the fused ones, which are every phase
+# kernel, and the standalone advection C1.
 BIT_EQUAL_F32 = ("cip_velocity_phase", "cip_dye_phase", "sor_iteration", "confinement",
-                 "mac_velocity_phase", "mac_dye_phase", "jacobi_iteration")
+                 "mac_velocity_phase", "mac_dye_phase", "jacobi_iteration", "cip_advect")
 
 
 def _preset_path(n: int):
@@ -857,6 +864,11 @@ def run_bf16_probes(dev) -> dict[str, int]:
     reset_counts()
     for mode in cuda_dtype_probes.RATE_MODES:
         res = vpu_dtype_probe.measure_dtype_rate(mode, RATE_PASSES, device=dev)
+        if mode == "fma":  # the mode the kernel table bounds: 2 flops a pass
+            n = 2048 * 1024
+            res["bound_ms"] = {"float32": bound(0, 2 * n * RATE_PASSES)[0],
+                               "bfloat16": bound(0, n * RATE_PASSES)[0]}
+            res["share_of_bound"] = {k: b / res["ms"][k] for k, b in res["bound_ms"].items()}
         emit({"phase": "bf16_probe", "probe": "vpu_dtype_probe", **res})
     for dtype in (torch.float32, BF16):
         ok = bf16_dma_probe.probe(dtype, dev)
@@ -900,7 +912,8 @@ def run_last_probes(dev, table) -> dict[str, int]:
     counts read, each new kernel held to its plain version on the inputs it
     times and timed into the kernel table. A failed check raises."""
     reset_counts()
-    for form, args in _advect_calls(dev).items():
+    advect = _advect_calls(dev)
+    for form, args in advect.items():
         outs = cuda_stencil.cip_advect_cuda(*args)
         if not all(o.shape == args[0].shape and o.dtype == args[0].dtype
                    and bool(torch.isfinite(o.float()).all()) for o in outs):
@@ -928,11 +941,33 @@ def run_last_probes(dev, table) -> dict[str, int]:
     counts = read_counts()
     emit({"phase": "last_probe", "launches": counts})
 
+    check_advect(advect, dev, table)
     check_fma_sweep(dev, swept, table)
     check_geometry_twin(dev, table)
     check_row_window(dev, table)
     check_toys(toys, table)
     return counts
+
+
+def check_advect(calls, dev, table) -> None:
+    """C1's op-level calls of phase 9 on the inputs they ran: bit-equal to
+    the plain version, and each timed (median_ms) beside its bound, the
+    bytes its form needs on the scene and the plain version's el-ops."""
+    scene = get_scene(SCENE, RES, dev)
+    row = table["cip_advect"].setdefault("op_level_ms", {})
+    for form, args in calls.items():
+        got = cuda_stencil.cip_advect_cuda(*args)
+        torch.cuda.synchronize()
+        bit_errors(got, cuda_stencil.cip_advect_plain(*args), f"cip_advect[{form}]")
+        ms = median_ms(lambda args=args: cuda_stencil.cip_advect_cuda(*args))
+        flops, _ = profiling.collect_elops(lambda args=args: cuda_stencil.cip_advect_plain(*args))
+        mix = "cip_advect_self" if args[3] is args[0] else "cip_advect"
+        bound_ms, bound_by = bound(profiling.needed_bytes(mix, scene, args[0].element_size()),
+                                   flops)
+        row[form] = ms
+        emit({"phase": "last_probe_check", "name": f"cip_advect_{form}", "bit_equal": True,
+              "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "share_of_bound": bound_ms / ms})
 
 
 def check_fma_sweep(dev, swept, table) -> None:

@@ -26,9 +26,8 @@ struct CipCell {
 };
 
 // f, fx, fy: one channel's value and gradients; u, w: the carrying
-// velocity's two planes. Each is a cell accessor (common.cuh): a Plane in
-// device memory (the standalone advection, and the dye phase's given
-// velocity) or a Window of stage values in shared memory (the phases).
+// velocity's two planes. Each is a cell accessor (common.cuh): here a Window
+// of values in shared memory (the phases and the standalone advection).
 template <typename FA, typename GA, typename VA>
 __device__ __forceinline__ CipCell cip_advect_cell(const FA& f, const GA& fx, const GA& fy,
                                                    const VA& u, const VA& w, int i, int j,

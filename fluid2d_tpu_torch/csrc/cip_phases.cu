@@ -44,6 +44,17 @@
 // advection one channel at a time through one pair of gradient windows, as
 // _cip_velocity_body does. Dye: one channel a blockIdx.z.
 //
+// The standalone advection (C1, replaces fluid2d_tpu/ops/pallas_stencil.py:
+// cip_advect_pallas) is the advection stage alone, one launch: a block owns
+// a TX × TY tile of every channel. It fills the carrying velocity on the
+// tile + 1 and the fluid flags on the tile once, then each channel's f, fx,
+// fy on the tile + 1 in turn, into the same three windows, and runs the
+// advection cell on them; the alternates are read at the non-fluid cells
+// only. When the velocity advects itself (u, w are f's first two planes),
+// their windows serve as those channels' f windows. Bound: bytes (f, fx, fy,
+// the velocity and the mask read once, the alternates at the non-fluid
+// cells, three planes written a channel; ~120 flops a cell and channel).
+//
 // Storage type S (common.cuh): the state's planes, the scene's constants and
 // the six outputs are S; each output is rounded once, at its store.
 #include "bc.cuh"
@@ -60,7 +71,6 @@ using f2d::for_window;
 using f2d::Grid;
 using f2d::kThreads;
 using f2d::kV;
-using f2d::ld;
 using f2d::Plane;
 using f2d::tile_blocks;
 using f2d::wait_fills;
@@ -68,9 +78,15 @@ using f2d::Window;
 
 namespace {
 
-// Output tile of a fused phase block, rows × columns, both phases: the
-// fastest of the shapes timed on the card (PERF.md §6).
+// Output tile of a fused phase block, rows × columns, both phases and the
+// standalone advection: the fastest of the shapes timed on the card
+// (PERF.md §6).
 constexpr int kTileX = 32, kTileY = 32;
+// Blocks an SM the standalone advection's registers allow, by storage type:
+// the fastest of 4 (uncapped: 64 registers), 5, 6 and 7 timed on the card
+// (PERF.md §6); at bf16, 6 spills.
+template <typename S>
+constexpr int kAdvectBlocks = f2d::kIsBf16<S> ? 5 : 6;
 
 // A cell's flag byte in a fused kernel's window, gathered from the scene's
 // int8 planes: the velocity BC code (0..6) in the low bits, then these.
@@ -378,32 +394,82 @@ __global__ void __launch_bounds__(kThreads) cip_dye_fused_kernel(
   });
 }
 
-// Standalone CIP advection at fluid cells, the kept values elsewhere; every
-// plane of storage type S, one thread per cell, the channel on blockIdx.z.
-template <typename S>
-__global__ void advect_kernel(const S* __restrict__ f, const S* __restrict__ fx,
-                              const S* __restrict__ fy, const S* __restrict__ u,
-                              const S* __restrict__ w, const int8_t* __restrict__ fluid,
-                              const S* __restrict__ keep_f, const S* __restrict__ keep_gx,
-                              const S* __restrict__ keep_gy, S* __restrict__ out_f,
-                              S* __restrict__ out_gx, S* __restrict__ out_gy, Grid g,
-                              CipConsts consts) {
-  int i, j;
-  if (!f2d::cell_of(g, i, j)) return;
-  const long long off = blockIdx.z * g.plane();
-  const long long k = (long long)i * g.Y + j;
-  f2d::CipCell r;
-  if (fluid[k] != 0) {
-    r = f2d::cip_advect_cell(Plane<S>{f + off, g}, Plane<S>{fx + off, g}, Plane<S>{fy + off, g},
-                             Plane<S>{u, g}, Plane<S>{w, g}, i, j, consts);
-  } else {
-    r.f = ld(keep_f, off + k);
-    r.fx = ld(keep_gx, off + k);
-    r.fy = ld(keep_gy, off + k);
+// The standalone advection's windows on a TX × TY tile: the carrying
+// velocity's two planes and one channel's f, fx, fy on the tile + 1, as
+// float; one flag byte a cell (fluid) on the tile.
+template <int TX, int TY>
+struct AdvectTile : Tile<TX, TY> {
+  using B = Tile<TX, TY>;
+  static constexpr int kFloats = 5 * B::H1 * B::P;
+  static constexpr int kBytes = 4 * kFloats + TX * B::P;
+};
+
+struct FluidFlag {  // fill_flags' packing of the fluid byte
+  __device__ __forceinline__ unsigned operator()(unsigned fluid) const { return fluid != 0; }
+};
+
+// Standalone CIP advection on one TX × TY tile, every channel: the advected
+// (f, fx, fy) at fluid cells, the alternates elsewhere. f, fx, fy, the
+// alternates and the outputs (C, X, Y); u, w (X, Y); fluid8 (X, Y) int8.
+// self: u and w are f's first two planes (the velocity advecting itself),
+// whose windows then serve as those channels' f windows. vec as above.
+template <typename S, int TX, int TY>
+__global__ void __launch_bounds__(kThreads, kAdvectBlocks<S>) cip_advect_fused_kernel(
+    const S* __restrict__ f, const S* __restrict__ fx, const S* __restrict__ fy,
+    const S* __restrict__ u, const S* __restrict__ w, const S* __restrict__ alt_f,
+    const S* __restrict__ alt_fx, const S* __restrict__ alt_fy,
+    const int8_t* __restrict__ fluid8, S* __restrict__ out_f, S* __restrict__ out_fx,
+    S* __restrict__ out_fy, Grid g, int C, CipConsts c, int vec, int self) {
+  using T = AdvectTile<TX, TY>;
+  constexpr int NC = T::NC, P = T::P, H1 = T::H1;
+  extern __shared__ __align__(16) float smem[];
+  float* const s_u = smem;
+  float* const s_w = s_u + H1 * P;
+  float* const s_f = s_w + H1 * P;
+  float* const s_fx = s_f + H1 * P;
+  float* const s_fy = s_fx + H1 * P;
+  uint8_t* const s_fl = reinterpret_cast<uint8_t*>(s_fy + H1 * P);
+  const int ti = blockIdx.y * TX, tj = blockIdx.x * TY, c0 = tj - kV;
+  const long long plane = g.plane();
+  const Window<P> uw{s_u, ti - 1, c0}, ww{s_w, ti - 1, c0}, fw{s_f, ti - 1, c0};
+  const Window<P> gx{s_fx, ti - 1, c0}, gy{s_fy, ti - 1, c0};
+  const Window<P, uint8_t> fl{s_fl, ti, c0};
+
+  // 0. Once a tile: the velocity on the tile + 1, the flags on the tile.
+  fill<H1, NC>(s_u, u, ti - 1, c0, g, vec);
+  fill<H1, NC>(s_w, w, ti - 1, c0, g, vec);
+  f2d::fill_flags<TX, NC>(s_fl, ti, c0, g, vec, FluidFlag{}, fluid8);
+
+  for (int ch = 0; ch < C; ++ch) {
+    // 1. This channel's f, fx, fy on the tile + 1 (f already there when it
+    //    is a velocity plane), into the windows the last channel freed.
+    const long long off = ch * plane;
+    const bool own = self != 0 && ch < 2;
+    if (ch > 0) __syncthreads();
+    if (!own) fill<H1, NC>(s_f, f + off, ti - 1, c0, g, vec);
+    fill<H1, NC>(s_fx, fx + off, ti - 1, c0, g, vec);
+    fill<H1, NC>(s_fy, fy + off, ti - 1, c0, g, vec);
+    wait_fills();
+
+    // 2. Advection on the tile at fluid cells, the alternates (read only
+    //    there) elsewhere; three stores.
+    const Window<P> fc = own ? (ch == 0 ? uw : ww) : fw;
+    for_window<TX, TY>(ti, tj, [&](int i, int j) {
+      if (i >= g.X || j >= g.Y) return;
+      const long long k = off + (long long)i * g.Y + j;
+      f2d::CipCell r;
+      if (fl(i, j) != 0) {
+        r = f2d::cip_advect_cell(fc, gx, gy, uw, ww, i, j, c);
+      } else {
+        r.f = f2d::ldg(alt_f, k);
+        r.fx = f2d::ldg(alt_fx, k);
+        r.fy = f2d::ldg(alt_fy, k);
+      }
+      f2d::st(out_f, k, r.f);
+      f2d::st(out_fx, k, r.fx);
+      f2d::st(out_fy, k, r.fy);
+    });
   }
-  f2d::st(out_f, off + k, r.f);
-  f2d::st(out_gx, off + k, r.fx);
-  f2d::st(out_gy, off + k, r.fy);
 }
 
 template <typename S>
@@ -443,17 +509,22 @@ int cip_dye_phase(const void* const* in, const int8_t* inflow8, const int8_t* no
 }
 
 // Standalone CIP advection (C1): every plane of storage type S, widened on
-// load; each output rounded once.
+// load; each output rounded once. One launch, a block a tile.
 template <typename S>
 int cip_advect(const void* f, const void* fx, const void* fy, const void* u, const void* w,
                const void* alt_f, const void* alt_fx, const void* alt_fy, const int8_t* fluid8,
                void* out_f, void* out_fx, void* out_fy, Grid g, int C, CipConsts c,
                cudaStream_t s) {
+  constexpr int bytes = AdvectTile<kTileX, kTileY>::kBytes;
+  constexpr auto kernel = cip_advect_fused_kernel<S, kTileX, kTileY>;
+  if (const cudaError_t err = allow_smem<kernel>(bytes); err != cudaSuccess) return (int)err;
   auto in = [](const void* p) { return static_cast<const S*>(p); };
   auto out = [](void* p) { return static_cast<S*>(p); };
-  advect_kernel<S><<<f2d::launch_blocks(g.X, g.Y, C), f2d::launch_threads(), 0, s>>>(
-      in(f), in(fx), in(fy), in(u), in(w), fluid8, in(alt_f), in(alt_fx), in(alt_fy),
-      out(out_f), out(out_fx), out(out_fy), g, c);
+  const int self = u == f && w == in(f) + g.plane();
+  const void* planes[] = {f, fx, fy, u, w, alt_f, alt_fx, alt_fy, fluid8};
+  kernel<<<tile_blocks(g, kTileX, kTileY, 1), kThreads, bytes, s>>>(
+      in(f), in(fx), in(fy), in(u), in(w), in(alt_f), in(alt_fx), in(alt_fy), fluid8,
+      out(out_f), out(out_fx), out(out_fy), g, C, c, chunk_loads(g, planes, 9), self);
   F2D_CHECK_LAUNCH();
   return 0;
 }

@@ -1,11 +1,11 @@
 // Shared index math, launch geometry and storage types for the fluid2d kernels.
 //
 // Every field is a row-major (C, X, Y) tensor with Y contiguous; masks and
-// codes are (X, Y) int8. One thread owns one cell: threadIdx.x runs along Y
-// so a warp reads 32 consecutive elements, and blockIdx.z is the channel
-// where channels are independent (the fused kernels work on tiles instead,
-// tile.cuh). Neighbour reads clamp to the grid edge, the semantics of the JAX
-// package's shift_x / shift_y.
+// codes are (X, Y) int8. The phase kernels and the standalone advection work
+// on tiles (tile.cuh); a probe kernel that owns one cell a thread runs
+// threadIdx.x along Y, so a warp reads 32 consecutive elements (cell_of).
+// Neighbour reads clamp to the grid edge, the semantics of the JAX package's
+// shift_x / shift_y.
 //
 // Storage. A field in device memory is stored as `float` or `bf16` (the
 // transport dtype of the state, SimConfig.dtype); all arithmetic is float.
@@ -64,7 +64,6 @@ __device__ __forceinline__ void st_pair(bf16* p, long long k, float a, float b) 
 }
 
 constexpr int kBlockY = 32;  // threads along the contiguous axis
-constexpr int kBlockX = 8;   // threads along X
 
 struct Grid {
   int X, Y;
@@ -111,12 +110,6 @@ __device__ __forceinline__ bool cell_of(const Grid& g, int& i, int& j) {
   i = blockIdx.y * blockDim.y + threadIdx.y;
   return i < g.X && j < g.Y;
 }
-
-inline dim3 launch_blocks(int X, int Y, int channels) {
-  return dim3((Y + kBlockY - 1) / kBlockY, (X + kBlockX - 1) / kBlockX, channels);
-}
-
-inline dim3 launch_threads() { return dim3(kBlockY, kBlockX, 1); }
 
 }  // namespace f2d
 

@@ -6,7 +6,11 @@
 //   arithmetic).
 //   Replaces scripts/vpu_dtype_probe.py (its Pallas kernel): does bf16
 //   arithmetic run faster than f32? Bound: FFMA / HFMA2 issue, by
-//   construction: one load and one store per `steps` dependent steps. Modes
+//   construction: one load and one store per `steps` dependent steps. A
+//   thread runs kChains chains, of consecutive elements, interleaved step by
+//   step, the same in both types: with one chain a thread the float32 arm
+//   timed its loop and the latency of one dependent chain, not the issue
+//   rate (PERF.md §6). Modes
 //   (the script's op mixes; "passes" counts the script's element-ops per
 //   element, the same for both types):
 //     fma     a = fma(a, c1, c2)                                   1 pass
@@ -57,6 +61,11 @@ constexpr int kThreads = 256;
 constexpr int kTailRows = 1;      // output rows of a tail block
 constexpr int kTailThreads = 64;  // threads of a tail block: a 256-column float row's chunks
 enum Mode { kFma = 0, kPoly = 1, kSelect = 2, kCipmix = 3 };
+// Independent chains a thread of the dtype-rate kernel, one count for both
+// types so that their ratio compares like with like: of 1, 2, 4 and 8 timed
+// on the card, float32 is fastest at 4 and bf16 at 2; at 2 neither is more
+// than 5% from its fastest (PERF.md §6).
+constexpr int kChains = 2;
 
 __device__ __forceinline__ float fma_(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ bf162 fma_(bf162 a, bf162 b, bf162 c) { return __hfma2(a, b, c); }
@@ -78,33 +87,53 @@ __device__ __forceinline__ float splat<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf162 splat<bf162>(float v) { return __float2bfloat162_rn(v); }
 
+// One step of mode kMode on a.
+template <int kMode, typename T>
+__device__ __forceinline__ T rate_step(T a, T c1, T c2, T c3, T two_c1, T neg_c1, T two_c3,
+                                       T neg_c3) {
+  if constexpr (kMode == kFma) {
+    return fma_(a, c1, c2);
+  } else if constexpr (kMode == kPoly) {
+    return fma_(mul_(a, a), c3, fma_(a, c1, c2));
+  } else if constexpr (kMode == kSelect) {
+    return fma_(a, sel_(a, c1, two_c1, neg_c1), c2);
+  } else {
+    return fma_(fma_(mul_(a, a), sel_(a, c3, two_c3, neg_c3), a), c1, c2);
+  }
+}
+
+// kChains consecutive elements a thread, their chains interleaved step by
+// step; the thread of the ragged tail runs its first m chains' elements (the
+// others start at 0 and are not stored).
 template <typename T, int kMode>
 __global__ void dtype_rate_kernel(const T* __restrict__ x, T* __restrict__ o, long long n,
                                   int steps, float c1f, float c2f, float c3f) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
+  const long long k0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kChains;
+  if (k0 >= n) return;
+  const int m = n - k0 < kChains ? (int)(n - k0) : kChains;
   const T c1 = splat<T>(c1f), c2 = splat<T>(c2f), c3 = splat<T>(c3f);
   const T two_c1 = splat<T>(2.0f * c1f), neg_c1 = splat<T>(-c1f);
   const T two_c3 = splat<T>(2.0f * c3f), neg_c3 = splat<T>(-c3f);
-  T a = x[k];
+  T a[kChains];
+#pragma unroll
+  for (int q = 0; q < kChains; ++q) a[q] = q < m ? x[k0 + q] : splat<T>(0.0f);
   for (int s = 0; s < steps; ++s) {
-    if constexpr (kMode == kFma) {
-      a = fma_(a, c1, c2);
-    } else if constexpr (kMode == kPoly) {
-      a = fma_(mul_(a, a), c3, fma_(a, c1, c2));
-    } else if constexpr (kMode == kSelect) {
-      a = fma_(a, sel_(a, c1, two_c1, neg_c1), c2);
-    } else {
-      a = fma_(fma_(mul_(a, a), sel_(a, c3, two_c3, neg_c3), a), c1, c2);
+#pragma unroll
+    for (int q = 0; q < kChains; ++q) {
+      a[q] = rate_step<kMode>(a[q], c1, c2, c3, two_c1, neg_c1, two_c3, neg_c3);
     }
   }
-  o[k] = a;
+#pragma unroll
+  for (int q = 0; q < kChains; ++q) {
+    if (q < m) o[k0 + q] = a[q];
+  }
 }
 
 template <typename T>
 int dtype_rate(const T* x, T* o, long long n, int steps, int mode, float c1, float c2, float c3,
                cudaStream_t s) {
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  const long long threads = (n + kChains - 1) / kChains;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   switch (mode) {
     case kFma: dtype_rate_kernel<T, kFma><<<blocks, kThreads, 0, s>>>(x, o, n, steps, c1, c2, c3); break;
     case kPoly: dtype_rate_kernel<T, kPoly><<<blocks, kThreads, 0, s>>>(x, o, n, steps, c1, c2, c3); break;

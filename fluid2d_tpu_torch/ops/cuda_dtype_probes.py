@@ -6,8 +6,12 @@ Source notes (``csrc/dtype_probes.cu`` says more beside each kernel).
   Replaces ``scripts/vpu_dtype_probe.py`` (its Pallas kernel): chained
   arithmetic per element in float32 or in bf16, two bf16 lanes per
   instruction, in four op mixes (``RATE_MODES``). Bound: FFMA / HFMA2
-  issue. The plain version repeats every instruction in float64 and rounds
-  its result to the element dtype, as the instruction does; it is exact up
+  issue. A thread runs two independent chains of consecutive elements,
+  interleaved step by step, in both dtypes (``csrc/dtype_probes.cu``
+  ``kChains``); each element's chain is the same sequence of rounded
+  instructions at any chain count. The plain version repeats every
+  instruction in float64 and rounds its result to the element dtype, as the
+  instruction does; it is exact up
   to a double rounding (float64 → float32 → bf16) where a bf16 result needs
   more than 24 bits, so the kernel is held to it within ``RATE_TOL_ULPS``
   units in the last place of each element. The constants make every step

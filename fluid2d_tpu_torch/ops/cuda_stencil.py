@@ -59,17 +59,25 @@ Source notes.
   alt)`` per output, C channels, the velocity given or ``vel is f`` (the
   velocity advecting itself).
   Kernel: ``fluid2d_tpu_torch/csrc/cip_phases.cu`` ``f2d_cip_advect``
-  (``advect_kernel``): the CIP phases' advection cell
-  (``csrc/cip_advect.cuh:cip_advect_cell``) read from device memory, its
-  planes at the storage type: one launch, one thread per cell, channels on
-  ``blockIdx.z``, no clamp.
+  (``cip_advect_fused_kernel``), one launch a call: a block owns a 32×32
+  tile of every channel, the advection stage of the fused dye phase alone.
+  It fills the velocity's two planes on the tile + 1 and the fluid flags
+  on the tile once (``cp.async`` at float32), then each channel's f, fx, fy
+  on the tile + 1 in turn into the same three shared-memory windows, an
+  entry past the grid holding the value at the clamped cell, and runs the
+  phases' advection cell (``csrc/cip_advect.cuh:cip_advect_cell``) on them;
+  the alternates are read at the non-fluid cells only. With ``vel is f``
+  the velocity's windows are channels 0 and 1's f windows, filled once.
   Bound on the H100: bytes. At 3200×1600 float32 the dye form (C = 3, a
-  separate velocity) moves 29 planes and the mask, 599.0 MB (0.179 ms at
-  3.35 TB/s); the velocity form (C = 2, ``vel is f``) 373.8 MB (0.112 ms);
-  about 120 flops per cell and channel (0.03 ms at 67 TFLOP/s).
-  What the design does about it: nothing yet: the upwind and gradient
-  neighbours are read from device memory and mostly hit L1/L2 (the fused
-  phases read them from shared-memory windows).
+  separate velocity) must read f, fx, fy, the velocity and the mask once
+  and the alternates at the non-fluid cells, and write 9 planes: 427 MB
+  (0.127 ms at 3.35 TB/s; 599.0 MB with every alternate in full); the
+  velocity form (C = 2, ``vel is f``) 259 MB (0.077 ms); about 120 flops
+  per cell and channel (0.03 ms at 67 TFLOP/s). What the design does about
+  it: every plane is read once a call, the velocity and the mask once for
+  all channels (one thread a cell, a channel a ``blockIdx.z``, had read
+  them once a channel and every neighbour through L1/L2); the halo rows a
+  neighbouring tile also reads come from L2.
   Storage: every field float32 or bfloat16, one dtype per call; bf16 is
   widened on load, the arithmetic is float32 and each output is rounded
   once, so a bf16 call is bit-identical to its plain version on the card, as

@@ -1,7 +1,7 @@
 """Time the fused kernels and the headline step, one tree or several in turn.
 
     python -m fluid2d_tpu_torch.scripts.phase_bench [--res 1600] [--calls 20]
-        [--steps 200] [--json PATH] [--trees DIR [DIR ...]] [--probes-only]
+        [--steps 200] [--json PATH] [--trees DIR [DIR ...]] [--probes-only | --shared-only]
 
 At float32 and bf16, on seeded fields of scene 2 at the res grid (2·res ×
 res), each the median of `calls` CUDA-event calls as ``chip_smoke.py`` times a
@@ -15,7 +15,10 @@ kernel:
   jacobi_n4           B1: four Jacobi iterations, one call (the first call of
                       a six-iteration solve)
 then, at both dtypes, the kernels that share the phases' per-cell functions
-(C1's dye form, B2 and B3 upwind and KK); the C3 twins of the mixes the
+(C1's dye form and velocity form, B2 and B3 upwind and KK); the C5a
+dtype-rate chains (``rate_ms``: the fma mode at RATE_PASSES passes on
+(2048, 1024) elements, as ``chip_smoke.py`` times it, beside its operation
+bound ``rate_bound_ms``); the C3 twins of the mixes the
 tree registers (``mix_twin``: the same bytes read once at reach 0) and the
 C5f dye-mix twin at reach 1; the probes, each beside the one PyTorch call of
 the same function on the same float32 plane (``probes_ms``), the plane
@@ -39,7 +42,9 @@ published rate (``HBM_BYTES_PER_S``); the whole mix's bound stands beside it.
 A probe's bound (``<name>_bound``) is its input read once and its output
 written once.
 ``--probes-only``
-times the probes alone (a sweep of probe variants).
+times the probes and the C5a chains alone (a sweep of probe variants);
+``--shared-only`` the kernels that share the phases' per-cell functions
+(``shared_ms``) and the C5a chains alone (a sweep of their variants).
 
 With ``--trees``, each tree's package is timed in a process of its own
 (``PYTHONPATH=<tree>``), in the order given, so parent against change in one
@@ -75,7 +80,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 BOUND_MIX = {"sor_pair": "sor_iteration_n2_v_limit", "confinement": "confinement",
              "cip_velocity_phase": "cip_velocity_phase", "cip_dye_phase": "cip_dye_phase",
              "jacobi_n2": "jacobi_iteration_n2_v_limit", "jacobi_n4": "jacobi_iteration_n4",
-             "cip_advect": "cip_advect",
+             "cip_advect": "cip_advect", "cip_advect_self": "cip_advect_self",
              "mac_velocity_phase_upwind": "mac_velocity_phase_upwind",
              "mac_velocity_phase_kk": "mac_velocity_phase_kk",
              "mac_dye_phase_upwind": "mac_dye_phase_upwind",
@@ -83,6 +88,7 @@ BOUND_MIX = {"sor_pair": "sor_iteration_n2_v_limit", "confinement": "confinement
 TWIN_MIXES = ("cip_velocity_phase", "cip_dye_phase", "sor_iteration_n2_v_limit", "confinement",
               "jacobi_iteration_n2_v_limit")
 TIMED_CALLS = 20
+RATE_SHAPE, RATE_PASSES = (2048, 1024), 3072  # C5a's timed inputs and depth
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock: longer than a call's enqueue
 
 
@@ -152,8 +158,8 @@ def phase_calls(res: int, dtype: torch.dtype, dev) -> dict[str, tuple]:
 
 def shared_calls(res: int, dev, dtype: torch.dtype = torch.float32) -> dict[str, tuple]:
     """{name: (wrapper, args)} at `dtype` for the kernels that share the
-    phases' per-cell functions: C1 (its dye form), B2 and B3 (upwind and
-    KK)."""
+    phases' per-cell functions: C1 (its dye form, and its velocity form,
+    ``vel is f``), B2 and B3 (upwind and KK)."""
     dname = str(dtype).removeprefix("torch.")
     cfg = SimConfig.create(resolution=res, dtype=dname)
     scene = scene_for_dtype(get_scene(2, res, dev), cfg)
@@ -176,6 +182,9 @@ def shared_calls(res: int, dev, dtype: torch.dtype = torch.float32) -> dict[str,
                                        (dye, rnd((3,), 0.5, 0.5), v, scene, scheme, cfg.dt,
                                         cfg.dx))
            for scheme in ("upwind", "kk")},
+        "cip_advect_self": (cuda_stencil.cip_advect_cuda,
+                            (v, rnd((2,), 0.1), rnd((2,), 0.1), v, rnd((2,), 0.5),
+                             rnd((2,), 0.1), rnd((2,), 0.1), scene.fluid8, cfg.dt, cfg.dx)),
     }
 
 
@@ -226,6 +235,24 @@ def probe_ms(res: int, calls: int, dev) -> dict:
     return out
 
 
+def rate_ms(calls: int, dev) -> dict:
+    """C5a's fma chains at RATE_PASSES on seeded RATE_SHAPE inputs, ms a
+    call at each dtype."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    x = 2.0 + torch.rand(RATE_SHAPE, generator=gen, device=dev)
+    return {dname: median_ms(lambda xd=x.to(dtype): cuda_dtype_probes.dtype_rate_cuda(
+                xd, RATE_PASSES, "fma"), calls)
+            for dname, dtype in DTYPES.items()}
+
+
+def rate_bound_ms(dtype: torch.dtype) -> float:
+    """C5a's operation bound (ms): 2 flops an element a pass at the float32
+    rate, bf16 two lanes an instruction (half the time)."""
+    lanes = 1 if dtype == torch.float32 else 2
+    flops = 2 * RATE_SHAPE[0] * RATE_SHAPE[1] * RATE_PASSES / lanes
+    return flops / profiling.FP32_FLOPS_PER_S * 1e3
+
+
 def time_phases(res: int, calls: int, dev) -> dict:
     """The phase calls at both dtypes: ms a call."""
     return {f"{name}_{dname}": median_ms(lambda wrapper=wrapper, args=args: wrapper(*args), calls)
@@ -268,17 +295,20 @@ def smi_line() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def measure(res: int, calls: int, steps: int, probes_only: bool = False) -> dict:
-    """Every time of one tree (the probes' alone with `probes_only`), in
-    this process."""
+def measure(res: int, calls: int, steps: int, only: str | None = None) -> dict:
+    """Every time of one tree (with `only` "probes" or "shared", those and
+    the C5a chains alone), in this process."""
     dev = resolve_device("cuda")
-    result = {"device": smi_line(), "res": res, "probes_ms": probe_ms(res, calls, dev)}
-    if probes_only:
+    result = {"device": smi_line(), "res": res, "rate_ms": rate_ms(calls, dev)}
+    if only != "shared":
+        result["probes_ms"] = probe_ms(res, calls, dev)
+    if only != "probes":
+        result["shared_ms"] = {f"{name}_{dname}": median_ms(lambda fn=fn, a=a: fn(*a), calls)
+                               for dname, dtype in DTYPES.items()
+                               for name, (fn, a) in shared_calls(res, dev, dtype).items()}
+    if only is not None:
         return result
     result["phases_ms"] = time_phases(res, calls, dev)
-    result["shared_ms"] = {f"{name}_{dname}": median_ms(lambda fn=fn, a=a: fn(*a), calls)
-                           for dname, dtype in DTYPES.items()
-                           for name, (fn, a) in shared_calls(res, dev, dtype).items()}
     result["twins_ms"] = twin_ms(res, calls, dev)
     result["headline_steps_per_s"] = {
         dname: bench_config(res, "cip", steps, dtype=dname, device=dev)[0] for dname in DTYPES}
@@ -298,7 +328,8 @@ def bounds_ms(res: int) -> dict:
     ``bound_ms`` from the bytes its function needs on scene 2,
     ``ledger_bound_ms`` from its whole mix."""
     scene = get_scene(2, res, "cpu")
-    out = {"bound_ms": {}, "ledger_bound_ms": {}}
+    out = {"bound_ms": {}, "ledger_bound_ms": {},
+           "rate_bound_ms": {dname: rate_bound_ms(dtype) for dname, dtype in DTYPES.items()}}
     for name, mix in BOUND_MIX.items():
         for dname, dtype in DTYPES.items():
             for key, nbytes in (("bound_ms", profiling.needed_bytes(mix, scene, dtype.itemsize)),
@@ -312,8 +343,8 @@ def run_tree(tree: str, args) -> dict:
     """measure() for the package of `tree`, in a process of its own."""
     cmd = [sys.executable, str(Path(__file__).resolve()), "--times-only", "--res", str(args.res),
            "--calls", str(args.calls), "--steps", str(args.steps)]
-    if args.probes_only:
-        cmd.append("--probes-only")
+    if args.only:
+        cmd.append(f"--{args.only}-only")
     env = {**os.environ, "PYTHONPATH": str(Path(tree).resolve())}
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
@@ -330,16 +361,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--json", default=None)
     ap.add_argument("--trees", nargs="+", default=None,
                     help="time each tree's package in turn (a process each)")
-    ap.add_argument("--probes-only", action="store_true",
-                    help="time the streaming probes alone")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--probes-only", action="store_const", const="probes", dest="only",
+                      help="time the streaming probes and the C5a chains alone")
+    only.add_argument("--shared-only", action="store_const", const="shared", dest="only",
+                      help="time C1, B2, B3 and the C5a chains alone")
     ap.add_argument("--times-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.times_only:
-        result = measure(args.res, args.calls, args.steps, args.probes_only)
+        result = measure(args.res, args.calls, args.steps, args.only)
     else:
         resolve_device("cuda")
         runs = ([run_tree(tree, args) for tree in args.trees] if args.trees
-                else [measure(args.res, args.calls, args.steps, args.probes_only)])
+                else [measure(args.res, args.calls, args.steps, args.only)])
         result = {"device": smi_line(), "res": args.res, **bounds_ms(args.res), "runs": runs}
     print(json.dumps(result), flush=True)
     if args.json:

@@ -517,11 +517,16 @@ def roofline_report(res: int = 1600, scheme: str = "cip", steps: int = 100,
     kernel's ``ceiling_GBps`` (probe C3, its operand mix at the real grid
     and at the transport `dtype`: at bf16 the bf16 twin) and
     ``fma_rate_Gelops`` (probe C4: float32, the kernels' arithmetic at
-    either dtype, as ``fluid2d_tpu/utils/profiling.py:884,917`` keeps it). Per kernel: bytes per step, the
-    ceiling, ``mem_floor_ms`` = bytes / ceiling, ``fma_floor_ms`` = counted
-    el-ops / FMA rate, ``floor_ms`` = the larger, ``bound`` = which one.
-    ``pct_of_geometry_roofline`` is the sum of the floors over the measured
-    step; ``pct_of_copy_roofline`` the kernel bytes at the copy rate over it.
+    either dtype, as ``fluid2d_tpu/utils/profiling.py:884,917`` keeps it). Per kernel: the
+    ledger's bytes per step (``MB_per_step``) and the bytes its function
+    needs (``needed_MB_per_step``: :func:`needed_bytes`, each alternate and
+    scene constant at the cells that read it, as a kernel's ``bound_ms``
+    takes them), the ceiling, ``mem_floor_ms`` = needed bytes / ceiling,
+    ``fma_floor_ms`` = counted el-ops / FMA rate, ``floor_ms`` = the larger,
+    ``bound`` = which one; ``ledger_floor_ms`` the same from the ledger's
+    bytes. ``pct_of_geometry_roofline`` is the sum of the floors over the
+    measured step, ``pct_of_ledger_geometry_roofline`` that of the ledger
+    floors; ``pct_of_copy_roofline`` the kernel bytes at the copy rate over it.
 
     Keys renamed from the JAX report, whose units were the TPU's:
     ``kernel_traffic_MB_per_step`` (JAX ``blockspec_traffic_MB_per_step``),
@@ -559,27 +564,36 @@ def roofline_report(res: int = 1600, scheme: str = "cip", steps: int = 100,
         "pct_of_copy_roofline": 100.0 * (kernel_bytes / sec_per_step) / bw,
     }
     kernels = {}
-    floor_ms = 0.0
+    floor_ms = ledger_floor_ms = 0.0
+    itemsize = getattr(torch, cfg.dtype).itemsize
     for name, nbytes in sorted(per_kernel.items()):
-        row: dict = {"MB_per_step": nbytes / 2**20}
+        # a step's calls of one variant each move its mix, so the needed
+        # share of the ledger is one call's
+        needed = nbytes * needed_bytes(name, scene, itemsize) / mix_bytes(name, x_rows, y_cols,
+                                                                           itemsize)
+        row: dict = {"MB_per_step": nbytes / 2**20, "needed_MB_per_step": needed / 2**20}
         ceil_bps, _ = measure_mix_ceiling(name, x_rows, y_cols, device=dev, dtype=cfg.dtype)
-        mem_floor = nbytes / ceil_bps * 1e3
+        mem_floor = needed / ceil_bps * 1e3
         row |= {"ceiling_GBps": ceil_bps / 1e9, "mem_floor_ms": mem_floor}
-        floor = mem_floor
+        floor, ledger_floor = mem_floor, nbytes / ceil_bps * 1e3
         if fma_rate is not None and name in elops:
             fma_floor = elops[name] / fma_rate * 1e3
             row |= {"fma_Gelops_per_step": elops[name] / 1e9, "fma_floor_ms": fma_floor,
                     "bound": "fma" if fma_floor > mem_floor else "mem"}
-            floor = max(mem_floor, fma_floor)
-        row["floor_ms"] = floor
+            floor, ledger_floor = max(floor, fma_floor), max(ledger_floor, fma_floor)
+        row |= {"floor_ms": floor, "ledger_floor_ms": ledger_floor}
         floor_ms += floor
+        ledger_floor_ms += ledger_floor
         kernels[name] = row
     report["kernels"] = kernels
     if fma_rate is not None:
         report["fma_rate_Gelops"] = fma_rate / 1e9
     if kernels:
-        report["geometry_floor_ms_per_step"] = floor_ms
-        report["pct_of_geometry_roofline"] = 100.0 * floor_ms / (sec_per_step * 1e3)
+        step_ms = sec_per_step * 1e3
+        report |= {"geometry_floor_ms_per_step": floor_ms,
+                   "pct_of_geometry_roofline": 100.0 * floor_ms / step_ms,
+                   "ledger_geometry_floor_ms_per_step": ledger_floor_ms,
+                   "pct_of_ledger_geometry_roofline": 100.0 * ledger_floor_ms / step_ms}
     return report
 
 

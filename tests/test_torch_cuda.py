@@ -42,7 +42,11 @@ per-dtype ones refused. The fused MAC velocity phase (B2, one launch: the
 pre-BC velocity on the tile + 3 or + 4, the BC'd on + 1 or + 2) the same,
 on an open scene with every velocity BC code on its edge.
 
-The standalone CIP advection (C1) bit-equal at float32 and bf16; the FMA
+The standalone CIP advection (C1, one launch on 32×32 tiles of every
+channel) bit-equal at float32 and bf16 in both forms, on scene 2 and on
+open scenes with fluid to every edge, into fresh outputs and `out=`; the
+dtype-rate chains (C5a) also on inputs that leave a ragged tail of each
+thread's group of chains, aligned and at a 4-byte offset; the FMA
 sweep (C5d) within ``fma_rate_error_bound`` of the float64 plain version,
 which one round short exceeds; the geometry twin (C5e/f) within
 1e-5·max(1, |ref|max); the row window (C5g, with 1, 2 and 8 tiles a
@@ -61,7 +65,7 @@ from fluid2d_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
-RES = 64  # scene 2 on a (128, 64) grid: whole 32×8 thread blocks
+RES = 64  # scene 2 on a (128, 64) grid: whole 32×32 tiles
 RAGGED_RES = 37  # (74, 37): neither axis a multiple of the block
 
 
@@ -252,14 +256,28 @@ def test_cuda_bf16_run_bit_equal_to_eager_run(cuda_device, config):
     _assert_bit_equal(got, ref, "state")
 
 
+# C5a's inputs, in chains (float32 elements, bf16 pairs): whole groups of
+# chains a thread; 1005, which leaves a ragged tail at 2, 4 and 8 chains a
+# thread; and those at a 4-byte offset.
+RATE_INPUTS = {"whole": (64 * 256, 0), "ragged": (1005, 0), "ragged_offset": (1005, 4)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("inputs", RATE_INPUTS.values(), ids=RATE_INPUTS.keys())
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("mode", cuda_dtype_probes.RATE_MODES)
-def test_cuda_dtype_rate_matches_plain(cuda_device, mode, dtype):
+def test_cuda_dtype_rate_matches_plain(cuda_device, mode, dtype, inputs):
     from fluid2d_tpu_torch.scripts.vpu_dtype_probe import check_dtype_rate
 
+    chains, offset = inputs
+    n = chains * (2 if dtype == torch.bfloat16 else 1)
+    skip = offset // dtype.itemsize
+    gen = torch.Generator(device="cpu").manual_seed(chains)
+    flat = (2.0 + torch.rand(n + skip, generator=gen)).to(dtype).to(cuda_device)
+    x = flat[skip:].view(1, n)
+    assert x.data_ptr() % 16 == offset
     before = cuda_dtype_probes.dtype_rate_cuda.launches
-    res = check_dtype_rate(mode, dtype, cuda_device, rows=64, cols=256, passes=3072)
+    res = check_dtype_rate(mode, dtype, cuda_device, passes=3072, x=x)
     assert cuda_dtype_probes.dtype_rate_cuda.launches == before + 2
     assert res["max_err_ulps"] <= res["tol_ulps"] < res["one_step_off_min_ulps"]
     assert res["max_err_ulps_deep"] <= res["tol_ulps"]
@@ -410,42 +428,65 @@ def test_cuda_probe_measurements_are_positive(cuda_device):
 # --- C1, the last probes (C5d–g) and the el-op toys (C6) ------------------------
 
 
-def _advect_args(res: int, dtype: torch.dtype, self_advect: bool, device):
-    """Seeded inputs of the standalone advection at scene 2's grid: the dye
-    form (C = 3, a separate velocity) or the velocity form (C = 2, vel is f)."""
-    sc = get_scene(2, res, device)
-    gen = torch.Generator(device="cpu").manual_seed(res + 7)
+# C1's grids: scene 2 at whole and ragged tiles, and open scenes (fluid on
+# every edge cell, so window entries past the grid decide outputs) of odd
+# shape (Y % 4 != 0: element-by-element fills) and of whole chunks.
+ADVECT_GRIDS = {"scene2": (2, RES), "scene2_ragged": (2, RAGGED_RES),
+                "open_odd": (None, (75, 37)), "open_chunk_rows": (None, (66, 36))}
+
+
+def _advect_args(grid, dtype: torch.dtype, self_advect: bool, device):
+    """Seeded inputs of the standalone advection on `grid` (ADVECT_GRIDS):
+    the dye form (C = 3, a separate velocity) or the velocity form (C = 2,
+    vel is f)."""
+    bc, size = grid
+    gen = torch.Generator(device="cpu").manual_seed(int(np.sum(size)) + 7)
+    if bc is None:
+        shape = size
+        fluid8 = (torch.rand(shape, generator=gen) > 0.2).to(torch.int8)
+        fluid8[0], fluid8[-1], fluid8[:, 0], fluid8[:, -1] = 1, 1, 1, 1
+        fluid8 = fluid8.to(device)
+        res = size[1]
+    else:
+        sc = get_scene(bc, size, device)
+        shape, fluid8, res = sc.shape, sc.fluid8, size
     chans = 2 if self_advect else 3
 
     def rnd(lead, scale):
-        return (scale * torch.randn((lead, *sc.shape), generator=gen)).to(dtype).to(device)
+        return (scale * torch.randn((lead, *shape), generator=gen)).to(dtype).to(device)
 
     f, fx, fy = rnd(chans, 8.0 if self_advect else 0.5), rnd(chans, 0.1), rnd(chans, 0.1)
     vel = f if self_advect else rnd(2, 8.0)
     alts = [rnd(chans, 0.5) for _ in range(3)]
     cfg = SimConfig.create(resolution=res)
-    return (f, fx, fy, vel, *alts, sc.fluid8, cfg.dt, cfg.dx)
+    return (f, fx, fy, vel, *alts, fluid8, cfg.dt, cfg.dx)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("res", [RES, RAGGED_RES])
+@pytest.mark.parametrize("grid", ADVECT_GRIDS.values(), ids=ADVECT_GRIDS.keys())
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("self_advect", [False, True], ids=["dye_form", "velocity_form"])
-def test_cuda_cip_advect_matches_plain(cuda_device, self_advect, dtype, res):
-    """C1 against its plain version: bit-equal at both dtypes (the phases'
-    advection arithmetic, each output rounded once); an output aliasing an
-    input raises before any launch."""
+def test_cuda_cip_advect_matches_plain(cuda_device, self_advect, dtype, grid):
+    """C1 against its plain version: bit-equal at both dtypes and both forms,
+    one launch a call, into fresh outputs or the `out=` given; an output
+    aliasing an input raises before any launch."""
     from fluid2d_tpu_torch.ops.cuda_stencil import cip_advect_cuda, cip_advect_plain
 
-    args = _advect_args(res, dtype, self_advect, cuda_device)
+    args = _advect_args(grid, dtype, self_advect, cuda_device)
+    ref = cip_advect_plain(*args)
     before = cip_advect_cuda.launches
     got = cip_advect_cuda(*args)
     torch.cuda.synchronize()
     assert cip_advect_cuda.launches == before + 1
-    _assert_bit_equal(got, cip_advect_plain(*args), "cip_advect")
+    _assert_bit_equal(got, ref, "cip_advect")
+    out = tuple(torch.full_like(args[0], float("nan")) for _ in range(3))
+    got = cip_advect_cuda(*args, out=out)
+    torch.cuda.synchronize()
+    assert cip_advect_cuda.launches == before + 2 and all(g is o for g, o in zip(got, out))
+    _assert_bit_equal(got, ref, "cip_advect out=")
     with pytest.raises(ValueError, match="aliases"):
         cip_advect_cuda(*args, out=(args[4], torch.empty_like(args[0]), torch.empty_like(args[0])))
-    assert cip_advect_cuda.launches == before + 1
+    assert cip_advect_cuda.launches == before + 2
 
 
 @pytest.mark.cuda

@@ -22,7 +22,9 @@ against the JAX package's, on the CPU:
   chains (C5a, against NumPy with ``ml_dtypes``' bfloat16, and their check
   against a step more or fewer) and the row-window copies (C5b) in their
   plain versions;
-* ``roofline_report`` keys on the CPU, and ``trace`` writing a file.
+* ``roofline_report`` keys on the CPU, its floors from the needed bytes
+  (never above the whole ledger's, equal without sparse reads), and
+  ``trace`` writing a file.
 """
 
 import json
@@ -586,6 +588,7 @@ REPORT_KEYS = {
     "steps_per_sec", "ms_per_step", "streaming_copy_GBps", "min_traffic_MB_per_step",
     "kernel_traffic_MB_per_step", "copy_roofline_ms_per_step", "pct_of_copy_roofline",
     "kernels", "geometry_floor_ms_per_step", "pct_of_geometry_roofline", "hbm_note", "device",
+    "ledger_geometry_floor_ms_per_step", "pct_of_ledger_geometry_roofline",
 }
 
 
@@ -600,6 +603,27 @@ def test_roofline_report_keys_on_cpu():
         assert row["ceiling_GBps"] > 0 and row["floor_ms"] == row["mem_floor_ms"] > 0
     assert rep["geometry_floor_ms_per_step"] == pytest.approx(
         sum(r["floor_ms"] for r in rep["kernels"].values()))
+
+
+@pytest.mark.parametrize("sparse", [True, False], ids=["needed", "no_sparse_reads"])
+def test_roofline_floors_take_the_needed_bytes(sparse, monkeypatch):
+    """Each kernel's floor is its needed bytes over its ceiling: never above
+    the floor of its whole ledger, which stands beside it, and equal to it
+    when the kernel has no sparse reads (the table emptied)."""
+    if not sparse:
+        monkeypatch.setattr(profiling, "_SPARSE_READS", {})
+    rep = profiling.roofline_report(res=16, steps=2, device="cpu")
+    scene = ft.get_scene(2, 16, "cpu")
+    for name, row in rep["kernels"].items():
+        share = (profiling.needed_bytes(name, scene)
+                 / profiling.mix_bytes(name, *scene.shape))
+        assert row["needed_MB_per_step"] == pytest.approx(share * row["MB_per_step"]), name
+        assert row["floor_ms"] <= row["ledger_floor_ms"], name
+        assert row["floor_ms"] == pytest.approx(share * row["ledger_floor_ms"]), name
+        assert (share == 1.0) == (not sparse), name
+    assert rep["geometry_floor_ms_per_step"] <= rep["ledger_geometry_floor_ms_per_step"]
+    assert rep["ledger_geometry_floor_ms_per_step"] == pytest.approx(
+        sum(r["ledger_floor_ms"] for r in rep["kernels"].values()))
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -124,8 +124,26 @@ Phases, each printed as JSON lines:
              version; the three toys bit-equal at the three shapes and on a
              view at offset 1 of the largest (the kernel's scalar path), with
              the el-op counter's counts of their plain versions.
+10. front end — the CLI in this process (cli.main, the counters read around
+             each run), at the main path's full width (scene 2, res=1600,
+             CIP, SOR ω=1.3 ×2, ε=5, dye) at float32 and at bf16: run A, 21
+             steps with a frame and a log line every 10, a dump and a
+             checkpoint; run B, --resume A for 9 steps with a dump (named
+             step_000030.npz) and a checkpoint; run C, 30 straight steps of
+             FluidSimulator.create. B's state (read back from its
+             checkpoint) bit-equal to C's on every leaf; A and B each launch
+             A1–A4 once a step (RUNS_PER_STEP["cip"]); two frames of
+             3200×1600, not uniform; the log lines carry div_rms and no NaN;
+             C's four views rendered on the card within VIEW_TOL of the same
+             state rendered on the CPU. The CLI timed with frames and logs
+             off (HEADLINE_STEPS steps) beside phase 6's headline, at least
+             CLI_RATE_FLOOR of it. Then solver_residual_bench (SOLVER_ARGS;
+             A1 and B1 with A2–A4, each kernel's runs counted from the
+             pressure chain) and bf16_drift (DRIFT_ARGS, both dtypes, no NaN)
+             through their entry points. The files live in a temporary
+             directory (an f32 checkpoint at res=1600 is about 655 MB).
 
-Then the kernel table as one JSON line (launches summed over phases 5–9),
+Then the kernel table as one JSON line (launches summed over phases 5–10),
 and as the last line {"ok": true, "device": {...}}. Any failure raises: the
 exit code is not 0 and the last line is not printed. Without a CUDA card it
 exits non-zero at once.
@@ -138,7 +156,9 @@ import io
 import json
 import re
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -147,6 +167,7 @@ from fluid2d_tpu_torch import (
     FluidSimulator,
     SimConfig,
     bench,
+    cli,
     get_scene,
     init_state,
     make_run_fn,
@@ -160,17 +181,24 @@ from fluid2d_tpu_torch.ops import (
     cuda_stencil,
     launch,
 )
+from fluid2d_tpu_torch.convert import state_from_numpy, state_to_numpy
+from fluid2d_tpu_torch.models.common import pressure_chain
+from fluid2d_tpu_torch.scenes.compile import Scene
 from fluid2d_tpu_torch.scripts import (
     bf16_dma_probe,
+    bf16_drift,
     bf16_geometry_probe,
     dma_geometry_bench,
     dma_geometry_sweep,
     dma_rowwin_1600_check,
+    solver_residual_bench,
     vpu_dtype_probe,
     vpu_rate_sweep,
 )
 from fluid2d_tpu_torch.scripts.phase_bench import median_ms
+from fluid2d_tpu_torch.utils import io as fio
 from fluid2d_tpu_torch.utils import profiling
+from fluid2d_tpu_torch.utils.viz import render_rgb
 
 RES = 1600
 SCENE = 2
@@ -189,6 +217,18 @@ RATE_PASSES = 3072  # the dtype-rate probe's timed depth
 ROOFLINE_STEPS = 100
 PROFILE_TRACES = 3  # traces of two headline steps the profile phase may take
 PUBLISHED_GBPS = profiling.HBM_BYTES_PER_S / 1e9
+# Phase 10, the front end: the CLI's flags for the main path (its defaults
+# are CIP, SOR ω=1.3 ×2, ε=5, dye), run A's and run B's steps (odd, so the
+# run loop's one-step remainder is crossed), the frame and log interval, the
+# card's views against the CPU's, the CLI's timed run against phase 6's
+# headline (at least CLI_RATE_FLOOR of it: more host work on the step is a
+# fault), the study scripts' arguments.
+CLI_FLAGS = ["-bc", str(SCENE), "-res", str(RES)]
+CLI_STEPS_A, CLI_STEPS_B, CLI_EVERY = 21, 9, 10
+VIEW_TOL = 1e-6
+CLI_RATE_FLOOR = 0.8
+SOLVER_ARGS = {"res": RES, "iters": (2, 4), "settle": 20, "probe": 5, "steps": 50}
+DRIFT_ARGS = {"res": RES, "steps": 200, "points": 3}
 
 # name, wrapper, source, TPU kernel it replaces
 KERNELS = (
@@ -557,8 +597,9 @@ def main() -> None:
     lap("5 run")
 
     # 6. the bench entry points: the headline and presets 1-6, both dtypes
+    headlines = {}
     for dtype in ("float32", "bfloat16"):
-        launches[f"bench_{dtype}"] = run_bench(dev, dtype)
+        launches[f"bench_{dtype}"] = run_bench(dev, dtype, headlines)
     lap("6 bench")
 
     # 7. the roofline report (bench --roofline)
@@ -573,6 +614,11 @@ def main() -> None:
     # 9. C1 at the op level and the last probe scripts through their entry points
     launches["last_probes"] = run_last_probes(dev, table)
     lap("9 last probes")
+
+    # 10. the front end: the CLI (run, resume, frames, logs, checkpoints), the
+    # card's views, the study scripts
+    launches |= run_front_end(headlines)
+    lap("10 front end")
 
     names = [name for name, *_ in KERNELS]
     totals = {name: sum(counts.get(name, 0) for counts in launches.values()) for name in names}
@@ -797,14 +843,16 @@ def check_fma_depth(dev) -> dict:
     return out
 
 
-def run_bench(dev, dtype: str) -> dict[str, int]:
+def run_bench(dev, dtype: str, headlines: dict[str, float]) -> dict[str, int]:
     """bench_config for the headline and run_preset for presets 1-6 at
     `dtype`; each run must be stable and move the counters by its runs per
-    step times its 2n steps (warm-up and timed). Returns the summed counts."""
+    step times its 2n steps (warm-up and timed). Records the headline's
+    steps/s in `headlines[dtype]`; returns the summed counts."""
     sfx = "" if dtype == "float32" else "_bf16"
 
     def headline():
         rate, state = bench.bench_config(RES, "cip", HEADLINE_STEPS, dtype=dtype, device=dev)
+        headlines[dtype] = rate
         return {"metric": f"steps_per_sec_res{RES}_cip" + ("" if not sfx else f"_{dtype}"),
                 "value": rate, "unit": "steps/s", "dtype": str(state.v.dtype),
                 "stable": bool(torch.isfinite(state.v.float()).all())}
@@ -1229,6 +1277,178 @@ def run_path(path: str, dev) -> dict[str, int]:
           "eager_steps": EAGER_STEPS, "eager_steps_per_s": EAGER_STEPS / eager_seconds,
           "max_abs_v": max_v, "launches": counts})
     return counts
+
+
+def _cli(argv: list[str], what: str) -> tuple[str, dict[str, int], float]:
+    """cli.main(argv) in this process, the counters zeroed just before:
+    (its standard output, the counts, seconds)."""
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    if "NaN DETECTED" in out:
+        raise AssertionError(f"{what}: NaN in the log:\n{out}")
+    return out, read_counts(), seconds
+
+
+def _check_frames(out_dir: Path, what: str) -> int:
+    from PIL import Image
+
+    frames = sorted(out_dir.glob("frame_*.png"))
+    if len(frames) != CLI_STEPS_A // CLI_EVERY:
+        raise AssertionError(f"{what}: frames {[f.name for f in frames]}")
+    for f in frames:
+        with Image.open(f) as im:
+            arr = np.asarray(im.convert("RGB"))
+        if arr.shape != (RES, 2 * RES, 3) or not (arr != arr[0, 0]).any():
+            raise AssertionError(f"{what}: {f.name} is {arr.shape}, uniform or misshaped")
+    return len(frames)
+
+
+def _check_views(sim, what: str) -> float:
+    """The four views rendered on the card against the same state and scene
+    rendered on the CPU; returns the largest difference."""
+    cpu_state = state_from_numpy(state_to_numpy(sim.state), "cpu", sim.cfg.dtype)
+    cpu_scene = Scene(*(t.cpu() for t in sim.scene))
+    worst = 0.0
+    for vis in range(4):
+        got = sim.render(vis)
+        if got.device.type != "cuda" or got.dtype != torch.float32:
+            raise AssertionError(f"{what}: view {vis} is {got.dtype} on {got.device}")
+        ref = render_rgb(cpu_state, cpu_scene, sim.cfg, vis)
+        err = float((got.cpu() - ref).abs().max())
+        if not err <= VIEW_TOL or not bool(torch.isfinite(ref).all()):
+            raise AssertionError(f"{what}: view {vis} differs from the CPU's by {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def _resume_legs(tmp: Path, dtype: str, headline: float) -> dict[str, int]:
+    """Run A (21 steps: frames and logs every 10, dump, checkpoint), run B
+    (--resume A for 9 steps: dump step_000030, checkpoint), run C (30
+    straight steps through FluidSimulator); B's state bit-equal to C's on
+    every leaf, each CLI run launching the main path's kernels once a step;
+    C's views on the card against the CPU's; the CLI timed with frames and
+    logs off beside phase 6's headline. Returns the CLI runs' counts."""
+    path = "cip" if dtype == "float32" else "cip_bf16"
+    flags = [*CLI_FLAGS, "--dtype", dtype]
+    ck_a, ck_b = tmp / "A.npz", tmp / "B.npz"
+    out_a, counts_a, sec_a = _cli(
+        [*flags, "--steps", str(CLI_STEPS_A), "--frame-every", str(CLI_EVERY), "--log-every",
+         str(CLI_EVERY), "--dump-fields", "--checkpoint", str(ck_a), "--output",
+         str(tmp / "A")], f"cli[{dtype}] A")
+    check_counts(counts_a, path, CLI_STEPS_A, f"cli[{dtype}] A")
+    logs = [line for line in out_a.splitlines() if line.startswith("step ")]
+    if [line.split(":")[0] for line in logs] != ["step 10", "step 20"] or not all(
+            "div_rms=" in line for line in logs):
+        raise AssertionError(f"cli[{dtype}] A: log lines {logs}")
+    frames = _check_frames(tmp / "A", f"cli[{dtype}] A")
+    if not (tmp / "A" / f"step_{CLI_STEPS_A:06d}.npz").exists():
+        raise AssertionError(f"cli[{dtype}] A: no dump")
+    emit({"phase": "cli", "run": "A", "dtype": dtype, "steps": CLI_STEPS_A, "seconds": sec_a,
+          "frames": frames, "logs": logs, "checkpoint_bytes": ck_a.stat().st_size,
+          "launches": counts_a})
+
+    out_b, counts_b, sec_b = _cli(
+        ["--resume", str(ck_a), "--steps", str(CLI_STEPS_B), "--dump-fields", "--checkpoint",
+         str(ck_b), "--output", str(tmp / "B")], f"cli[{dtype}] B")
+    check_counts(counts_b, path, CLI_STEPS_B, f"cli[{dtype}] B")
+    total = CLI_STEPS_A + CLI_STEPS_B
+    dump = tmp / "B" / f"step_{total:06d}.npz"
+    if not dump.exists():
+        raise AssertionError(f"cli[{dtype}] B: no {dump.name} in {list((tmp / 'B').iterdir())}")
+
+    sim = FluidSimulator.create(bc_num=SCENE, resolution=RES, dtype=dtype)
+    sim.step(total)
+    resumed, _, _ = fio.load_checkpoint(ck_b, sim.device)
+    if int(resumed.step) != total or int(sim.state.step) != total:
+        raise AssertionError(f"cli[{dtype}]: steps {int(resumed.step)}, {int(sim.state.step)}")
+    names = [name for name, _ in leaves(sim.state)]
+    if names != [name for name, _ in leaves(resumed)]:
+        raise AssertionError(f"cli[{dtype}]: leaves {names}")
+    bit_errors([leaf for _, leaf in leaves(resumed)], [leaf for _, leaf in leaves(sim.state)],
+               f"cli[{dtype}] {CLI_STEPS_A} + {CLI_STEPS_B} steps against {total}")
+    view_err = _check_views(sim, f"cli[{dtype}] views")
+    del sim, resumed
+    emit({"phase": "cli", "run": "B", "dtype": dtype, "steps": CLI_STEPS_B, "seconds": sec_b,
+          "dump": dump.name, "resume_bit_equal": names, "views_max_abs_err": view_err,
+          "launches": counts_b})
+
+    out_t, counts_t, _ = _cli([*flags, "--steps", str(HEADLINE_STEPS), "--output",
+                               str(tmp / "T")], f"cli[{dtype}] timed")
+    check_counts(counts_t, path, HEADLINE_STEPS, f"cli[{dtype}] timed")
+    rate = float(re.search(r"\(([0-9.]+) steps/s\)", out_t.splitlines()[-1]).group(1))
+    if rate < CLI_RATE_FLOOR * headline:
+        raise AssertionError(f"cli[{dtype}]: {rate} steps/s against the headline's {headline}")
+    emit({"phase": "cli", "run": "timed", "dtype": dtype, "steps": HEADLINE_STEPS,
+          "steps_per_s": rate, "headline_steps_per_s": headline, "ratio": rate / headline,
+          "launches": counts_t})
+    return {name: counts_a[name] + counts_b[name] + counts_t[name] for name in counts_a}
+
+
+def run_front_end(headlines: dict[str, float]) -> dict[str, dict[str, int]]:
+    """Phase 10 (on the card: every entry point's default device): the
+    CLI's resume legs at float32 and bf16, each timed beside phase 6's
+    headline (`headlines`), then
+    solver_residual_bench (A1 and B1 on the CIP path) and bf16_drift (both
+    dtypes) through their entry points, each with its kernel runs checked.
+    Returns the counts by path."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("float32", "bfloat16"):
+            (Path(tmp) / dtype).mkdir()
+            launches[f"cli_{dtype}"] = _resume_legs(Path(tmp) / dtype, dtype, headlines[dtype])
+
+    a = SOLVER_ARGS
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rows = solver_residual_bench.main(
+            ["--res", str(a["res"]), "--iters", ",".join(map(str, a["iters"])), "--settle",
+             str(a["settle"]), "--probe", str(a["probe"]), "--steps", str(a["steps"])])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    steps = a["settle"] + 2 * a["probe"] + 2 * a["steps"]  # settle, probes, warm-up + timed
+    calls = {solver: sum(len(pressure_chain(SimConfig.create(pressure_solver=solver,
+                                                             n_pressure_iter=n)))
+                         for n in a["iters"]) for solver in ("sor", "jacobi")}
+    per_kernel = {"cip_velocity_phase": 2 * len(a["iters"]), "confinement": 2 * len(a["iters"]),
+                  "cip_dye_phase": 2 * len(a["iters"]), "sor_iteration": calls["sor"],
+                  "jacobi_iteration": calls["jacobi"]}
+    want = {name: per_kernel.get(name, 0) * steps for name, *_ in KERNELS}
+    if counts != want:
+        raise AssertionError(f"solver_residual: kernel runs {counts}, expected {want}")
+    for solver, n, resid, rate in rows:
+        if not (np.isfinite(resid) and resid > 0 and rate > 0):
+            raise AssertionError(f"solver_residual: {solver} n={n}: {resid}, {rate}")
+    emit({"phase": "cli", "run": "solver_residual", "seconds": seconds, **a,
+          "rows": [{"solver": s, "n_iter": n, "div_rms": r, "steps_per_s": q}
+                   for s, n, r, q in rows], "launches": counts})
+    launches["solver_residual"] = counts
+
+    d = DRIFT_ARGS
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        drift = bf16_drift.main(["--res", str(d["res"]), "--steps", str(d["steps"]),
+                                 "--points", str(d["points"])])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, "cip", 2 * d["steps"], "bf16_drift")  # one run a dtype
+    rows = drift["drift"]
+    if [row["step"] for row in rows] != bf16_drift.marks_for(d["steps"], d["points"]) or any(
+            row["bf16_nan"] or not all(np.isfinite(v) for k, v in row.items() if k != "bf16_nan")
+            for row in rows):
+        raise AssertionError(f"bf16_drift: {drift}")
+    emit({"phase": "cli", "run": "bf16_drift", "seconds": seconds, **d, "drift": rows,
+          "launches": counts})
+    launches["bf16_drift"] = counts
+    return launches
 
 
 if __name__ == "__main__":

@@ -3,11 +3,14 @@
 Scene builders, eager ops, the CIP and MAC (upwind, Kawamura-Kuwahara)
 steps with the SOR or Jacobi pressure solver, float32 or bf16 transport,
 and the run loop in PyTorch,
-with every phase kernel hand-written in CUDA C++ for Hopper (``csrc/``). The JAX package ``fluid2d_tpu`` is the reference the
-port is held against; this package never imports JAX.
+with every phase kernel hand-written in CUDA C++ for Hopper (``csrc/``);
+the façade's four views, ``.npz`` checkpoints that both packages load,
+diagnostics, the CLI (``python -m fluid2d_tpu_torch.cli``) and the
+viewer. The JAX package ``fluid2d_tpu`` is the reference the port is held
+against; this package never imports JAX.
 """
 
-from fluid2d_tpu_torch.config import SimConfig, default_dt
+from fluid2d_tpu_torch.config import SimConfig, default_dt, resolve_device
 from fluid2d_tpu_torch.models.simulator import (
     FluidSimulator,
     make_run_fn,
@@ -30,5 +33,6 @@ __all__ = [
     "init_state",
     "make_run_fn",
     "make_step_fn",
+    "resolve_device",
     "scene_for_dtype",
 ]

@@ -28,23 +28,13 @@ import sys
 
 import torch
 
-from fluid2d_tpu_torch.config import SimConfig
+from fluid2d_tpu_torch.config import SimConfig, resolve_device
 from fluid2d_tpu_torch.models.simulator import make_run_fn, scene_for_dtype
 from fluid2d_tpu_torch.scenes.compile import get_scene
 from fluid2d_tpu_torch.state import SimState, init_state
 from fluid2d_tpu_torch.utils.profiling import device_name, roofline_report, time_steps
 
-__all__ = ["bench_config", "run_preset", "main"]
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """`device` as a torch.device; raises for CUDA when no card is there."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        msg = "no CUDA card: torch.cuda.is_available() is false (use --device cpu to check " \
-              "the harness on the CPU)"
-        raise RuntimeError(msg)
-    return dev
+__all__ = ["bench_config", "run_preset", "main", "resolve_device"]
 
 
 def bench_config(res: int, scheme: str, steps: int, *, enable_dye=True, vor_eps=5.0, bc=2,

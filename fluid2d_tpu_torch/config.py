@@ -16,10 +16,23 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["SimConfig", "default_dt", "VELOCITY_LIMIT", "KERNEL_MODES"]
+import torch
+
+__all__ = ["SimConfig", "default_dt", "resolve_device", "VELOCITY_LIMIT", "KERNEL_MODES"]
 
 VELOCITY_LIMIT = 10.0  # fs/solver.py:12
 KERNEL_MODES = ("auto", "cuda", "eager")
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """`device` as a torch.device; raises for CUDA when no card is there
+    (nothing falls back to the CPU unasked)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        msg = "no CUDA card: torch.cuda.is_available() is false (use --device cpu to check " \
+              "the harness on the CPU)"
+        raise RuntimeError(msg)
+    return dev
 
 
 def default_dt(resolution: int) -> float:

@@ -990,3 +990,71 @@ def test_cuda_row_copy_bit_equal_at_each_window(cuda_device, mode, t, dtype):
     torch.cuda.synchronize()
     assert cuda_dtype_probes.row_copy_cuda.launches == before + 1
     assert torch.equal(got.cpu(), cuda_dtype_probes.row_copy_plain(x, mode, t))
+
+
+# --- the front end on the card --------------------------------------------
+
+FRONT_WRAPPERS = (cuda_phases.cip_velocity_phase_cuda, cuda_phases.confinement_cuda,
+                  cuda_stencil.sor_iteration_cuda, cuda_phases.cip_dye_phase_cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_render_matches_cpu_render(cuda_device, dtype):
+    """The four views of a kernel-path state, rendered on the card, within
+    1e-6 of the same state rendered on the CPU."""
+    from fluid2d_tpu_torch import FluidSimulator
+    from fluid2d_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from fluid2d_tpu_torch.utils.viz import render_rgb
+
+    sim = FluidSimulator.create(2, RES, dtype=dtype)
+    assert sim.device.type == "cuda"
+    sim.step(12)
+    cpu_state = state_from_numpy(state_to_numpy(sim.state), "cpu", dtype)
+    cpu_scene = scene_for_dtype(get_scene(2, RES, "cpu"), sim.cfg)
+    for vis in range(4):
+        got = sim.render(vis)
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        ref = render_rgb(cpu_state, cpu_scene, sim.cfg, vis)
+        assert float(ref.abs().max()) > 0
+        assert float((got.cpu() - ref).abs().max()) <= 1e-6, vis
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_checkpoint_round_trip_is_bit_exact(cuda_device, dtype, tmp_path):
+    """A kernel-path state through a checkpoint onto the card, bit for bit;
+    7 + 5 steps through it equal 12 straight steps on every leaf."""
+    from fluid2d_tpu_torch import FluidSimulator, SimState
+
+    a = FluidSimulator.create(2, RES, dtype=dtype)
+    a.step(7)
+    a.save(tmp_path / "a.npz")
+    b = FluidSimulator.load(tmp_path / "a.npz")
+    assert b.device.type == "cuda" and b.step_count == 7
+    for name, x, y in zip(SimState._fields, a.state, b.state):
+        assert (x is None) == (y is None), name
+        if x is not None:
+            assert x.dtype == y.dtype and torch.equal(x, y), name
+    b.step(5)
+    c = FluidSimulator.create(2, RES, dtype=dtype)
+    c.step(12)
+    for name, x, y in zip(SimState._fields, b.state, c.state):
+        if x is not None:
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_cuda_cli_default_device_launches_the_kernels(cuda_device, tmp_path, capsys):
+    """``cli.main`` at res=400 with no --device runs on the card: each of the
+    main path's four kernels once a step."""
+    from fluid2d_tpu_torch import cli
+
+    before = [w.launches for w in FRONT_WRAPPERS]
+    cli.main(["-bc", "2", "-res", "400", "--steps", "5", "--log-every", "5", "--dump-fields",
+              "--output", str(tmp_path)])
+    assert [w.launches - n for w, n in zip(FRONT_WRAPPERS, before)] == [5, 5, 5, 5]
+    out = capsys.readouterr().out
+    assert "step 5:" in out and "div_rms=" in out and "NaN" not in out
+    with np.load(tmp_path / "step_000005.npz") as data:
+        assert data["v"].shape == (800, 400, 2) and np.isfinite(data["v"]).all()

@@ -131,6 +131,18 @@ def test_package_never_imports_jax():
         "import fluid2d_tpu_torch.scripts.vpu_rate_sweep, fluid2d_tpu_torch.scripts.dma_geometry_sweep\n"
         "import fluid2d_tpu_torch.scripts.dma_geometry_bench\n"
         "import fluid2d_tpu_torch.scripts.dma_rowwin_1600_check\n"
+        "import fluid2d_tpu_torch.cli, fluid2d_tpu_torch.utils.viz, fluid2d_tpu_torch.utils.io\n"
+        "import fluid2d_tpu_torch.utils.metrics, fluid2d_tpu_torch.utils.viewer\n"
+        "import fluid2d_tpu_torch.utils.notes\n"
+        "import fluid2d_tpu_torch.scripts.solver_residual_bench, fluid2d_tpu_torch.scripts.bf16_drift\n"
+        "import contextlib, io, tempfile\n"
+        "d = tempfile.mkdtemp()\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    fluid2d_tpu_torch.cli.main(['-bc', '2', '-res', '16', '--steps', '2', '--frame-every',\n"
+        "                                '1', '--log-every', '1', '--dump-fields', '--output', d,\n"
+        "                                '--checkpoint', d + '/c.npz', '--device', 'cpu'])\n"
+        "    fluid2d_tpu_torch.cli.main(['--resume', d + '/c.npz', '--steps', '1', '--output', d,\n"
+        "                                '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid2d_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -198,6 +198,7 @@ from fluid2d_tpu_torch.scripts import (
 from fluid2d_tpu_torch.scripts.phase_bench import median_ms
 from fluid2d_tpu_torch.utils import io as fio
 from fluid2d_tpu_torch.utils import profiling
+from fluid2d_tpu_torch.utils.trace import launches as launch_counter
 from fluid2d_tpu_torch.utils.viz import render_rgb
 
 RES = 1600
@@ -230,43 +231,43 @@ CLI_RATE_FLOOR = 0.8
 SOLVER_ARGS = {"res": RES, "iters": (2, 4), "settle": 20, "probe": 5, "steps": 50}
 DRIFT_ARGS = {"res": RES, "steps": 200, "points": 3}
 
-# name, wrapper, source, TPU kernel it replaces
+# name, the C entry points its wrapper launches, source, TPU kernel it replaces
 KERNELS = (
-    ("cip_velocity_phase", cuda_phases.cip_velocity_phase_cuda,
+    ("cip_velocity_phase", ("f2d_cip_velocity_phase",),
      "fluid2d_tpu_torch/csrc/cip_phases.cu", "fluid2d_tpu/ops/pallas_phases.py:490"),
-    ("confinement", cuda_phases.confinement_cuda,
+    ("confinement", ("f2d_confinement",),
      "fluid2d_tpu_torch/csrc/confinement.cu", "fluid2d_tpu/ops/pallas_phases.py:1925"),
-    ("sor_iteration", cuda_stencil.sor_iteration_cuda,
+    ("sor_iteration", ("f2d_sor_iteration",),
      "fluid2d_tpu_torch/csrc/sor.cu", "fluid2d_tpu/ops/pallas_stencil.py:1238"),
-    ("cip_dye_phase", cuda_phases.cip_dye_phase_cuda,
+    ("cip_dye_phase", ("f2d_cip_dye_phase",),
      "fluid2d_tpu_torch/csrc/cip_phases.cu", "fluid2d_tpu/ops/pallas_phases.py:1631"),
-    ("mac_velocity_phase", cuda_phases.mac_velocity_phase_cuda,
+    ("mac_velocity_phase", ("f2d_mac_velocity_phase",),
      "fluid2d_tpu_torch/csrc/mac_phases.cu", "fluid2d_tpu/ops/pallas_phases.py:2094"),
-    ("mac_dye_phase", cuda_phases.mac_dye_phase_cuda,
+    ("mac_dye_phase", ("f2d_mac_dye_phase",),
      "fluid2d_tpu_torch/csrc/mac_phases.cu", "fluid2d_tpu/ops/pallas_phases.py:2277"),
-    ("jacobi_iteration", cuda_stencil.jacobi_iteration_cuda,
+    ("jacobi_iteration", ("f2d_jacobi_iteration",),
      "fluid2d_tpu_torch/csrc/jacobi.cu", "fluid2d_tpu/ops/pallas_stencil.py:1401"),
-    ("copy_add1", cuda_probes.copy_add1_cuda,
+    ("copy_add1", ("f2d_copy_add1",),
      "fluid2d_tpu_torch/csrc/probes.cu", "fluid2d_tpu/utils/profiling.py:53"),
-    ("mix_twin", cuda_probes.mix_twin_cuda,
+    ("mix_twin", ("f2d_mix_twin",),
      "fluid2d_tpu_torch/csrc/probes.cu", "fluid2d_tpu/utils/profiling.py:525"),
-    ("mix_twin_bf16", cuda_probes.mix_twin_bf16_cuda,
+    ("mix_twin_bf16", ("f2d_mix_twin_bf16",),
      "fluid2d_tpu_torch/csrc/probes.cu", "scripts/bf16_geometry_probe.py:108"),
-    ("fma_rate", cuda_probes.fma_rate_cuda,
+    ("fma_rate", ("f2d_fma_rate",),
      "fluid2d_tpu_torch/csrc/probes.cu", "fluid2d_tpu/utils/profiling.py:702"),
-    ("dtype_rate", cuda_dtype_probes.dtype_rate_cuda,
+    ("dtype_rate", ("f2d_dtype_rate", "f2d_dtype_rate_bf16"),
      "fluid2d_tpu_torch/csrc/dtype_probes.cu", "scripts/vpu_dtype_probe.py:101"),
-    ("row_copy", cuda_dtype_probes.row_copy_cuda,
+    ("row_copy", ("f2d_row_copy", "f2d_row_copy_bf16"),
      "fluid2d_tpu_torch/csrc/dtype_probes.cu", "scripts/bf16_dma_probe.py:84"),
-    ("cip_advect", cuda_stencil.cip_advect_cuda,
+    ("cip_advect", ("f2d_cip_advect",),
      "fluid2d_tpu_torch/csrc/cip_phases.cu", "fluid2d_tpu/ops/pallas_stencil.py:948"),
-    ("fma_sweep", cuda_probes.fma_sweep_cuda,
+    ("fma_sweep", ("f2d_fma_sweep",),
      "fluid2d_tpu_torch/csrc/probes.cu", "scripts/vpu_rate_sweep.py:49"),
-    ("geometry_twin", cuda_probes.geometry_twin_cuda,
+    ("geometry_twin", ("f2d_geometry_twin",),
      "fluid2d_tpu_torch/csrc/probes.cu", "scripts/dma_geometry_sweep.py:232"),
-    ("row_window", cuda_probes.row_window_cuda,
+    ("row_window", ("f2d_row_window",),
      "fluid2d_tpu_torch/csrc/probes.cu", "scripts/dma_rowwin_1600_check.py:57"),
-    ("toy_elementwise", cuda_probes.toy_elementwise_cuda,
+    ("toy_elementwise", ("f2d_toy_elementwise",),
      "fluid2d_tpu_torch/csrc/probes.cu", "tests/test_profiling.py:134"),
 )
 PROBES = ("copy_add1", "mix_twin", "mix_twin_bf16", "fma_rate", "dtype_rate", "row_copy",
@@ -518,12 +519,13 @@ def seeded_state(scene, cfg, dev):
 
 
 def reset_counts() -> None:
-    for _, wrapper, *_ in KERNELS:
-        wrapper.launches = 0
+    launch_counter.clear()
 
 
 def read_counts() -> dict[str, int]:
-    return {name: wrapper.launches for name, wrapper, *_ in KERNELS}
+    """Kernel runs by KERNELS row since the last reset (the launch counter,
+    ``fluid2d_tpu_torch/utils/trace.py``)."""
+    return {name: sum(launch_counter[e] for e in entries) for name, entries, *_ in KERNELS}
 
 
 def check_counts(counts: dict[str, int], path: str, steps: int, what: str) -> None:

@@ -18,6 +18,7 @@ or ``--kernels eager``. Nothing moves to the CPU unasked.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from pathlib import Path
 
@@ -114,10 +115,30 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Obstacle silhouette: a grayscale image path or a "
                              "bundled asset name (dragon, rabbit, aircraft); "
                              "replaces the -bc scene")
+    parser.add_argument("--profile", type=str, default="", metavar="DIR",
+                        help="Trace the run loop with torch.profiler and write a Chrome "
+                             "trace to DIR/trace.json: the port's f2d.* spans (step, phase "
+                             "wrappers, launches, the image's copy and conversion) beside "
+                             "the kernels")
     parser.add_argument("--interactive", action="store_true",
                         help="Open an interactive window (needs a display); "
                              "keys: p pause, v cycle vis, s screenshot, d dump, q quit")
     return parser
+
+
+@contextlib.contextmanager
+def _profiled(log_dir: str):
+    """A profiler trace of the block in ``log_dir`` with the port's spans on
+    (``utils/trace.py``); nothing when ``log_dir`` is empty."""
+    if not log_dir:
+        yield
+        return
+    from fluid2d_tpu_torch.utils import trace
+    from fluid2d_tpu_torch.utils.profiling import trace as profiler_trace
+
+    with profiler_trace(log_dir), trace.enabled(True):
+        yield
+    print(f"profile written to {Path(log_dir) / 'trace.json'}")
 
 
 def resolve_args(args: argparse.Namespace):
@@ -250,34 +271,35 @@ def main(argv: list[str] | None = None) -> None:
     gif_paths: list[Path] = []  # frame FILES — the GIF streams from disk
     aborted = False
     t0 = time.perf_counter()
-    while done < args.steps:
-        stop = min([args.steps] + [done - done % v + v for v in intervals])
-        sim.step(stop - done)
-        done = stop
-        if args.abort_on_nan:
-            from fluid2d_tpu_torch.utils.metrics import has_nan
+    with _profiled(args.profile):
+        while done < args.steps:
+            stop = min([args.steps] + [done - done % v + v for v in intervals])
+            sim.step(stop - done)
+            done = stop
+            if args.abort_on_nan:
+                from fluid2d_tpu_torch.utils.metrics import has_nan
 
-            if has_nan(sim.state):
-                print(f"** NaN detected at step {sim.step_count}; aborting "
-                      f"(resume from the last checkpoint with --resume)")
-                aborted = True
-                break
-        if args.checkpoint_every and args.checkpoint and done % args.checkpoint_every == 0:
-            sim.save(args.checkpoint)
-        if args.frame_every and done % args.frame_every == 0:
-            frame = to_image(sim._render(sim.state, sim.scene, args.visualization))
-            frame_path = out_dir / f"frame_{frame_idx:05d}.png"
-            write_png(frame_path, frame)
-            if args.gif:
-                gif_paths.append(frame_path)
-            frame_idx += 1
-        if args.log_every and done % args.log_every == 0:
-            sync(sim.state)  # the rate of finished steps, not of queued ones
-            elapsed = time.perf_counter() - t0
-            diag = diagnostics(sim.state, sim.scene, cfg)
-            print(f"step {sim.step_count}: {done / elapsed:8.1f} steps/s  {diag}")
+                if has_nan(sim.state):
+                    print(f"** NaN detected at step {sim.step_count}; aborting "
+                          f"(resume from the last checkpoint with --resume)")
+                    aborted = True
+                    break
+            if args.checkpoint_every and args.checkpoint and done % args.checkpoint_every == 0:
+                sim.save(args.checkpoint)
+            if args.frame_every and done % args.frame_every == 0:
+                frame = to_image(sim._render(sim.state, sim.scene, args.visualization))
+                frame_path = out_dir / f"frame_{frame_idx:05d}.png"
+                write_png(frame_path, frame)
+                if args.gif:
+                    gif_paths.append(frame_path)
+                frame_idx += 1
+            if args.log_every and done % args.log_every == 0:
+                sync(sim.state)  # the rate of finished steps, not of queued ones
+                elapsed = time.perf_counter() - t0
+                diag = diagnostics(sim.state, sim.scene, cfg)
+                print(f"step {sim.step_count}: {done / elapsed:8.1f} steps/s  {diag}")
 
-    sync(sim.state)  # the card's queue drained, then one device→host read
+        sync(sim.state)  # the card's queue drained, then one device→host read
     elapsed = time.perf_counter() - t0
     print(f"ran {done} steps in {elapsed:.2f}s ({done / elapsed:.1f} steps/s)")
 

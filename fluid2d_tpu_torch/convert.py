@@ -19,6 +19,7 @@ import torch
 
 from fluid2d_tpu_torch.scenes.compile import Scene
 from fluid2d_tpu_torch.state import SimState
+from fluid2d_tpu_torch.utils.trace import to_host
 
 __all__ = ["scene_from_numpy", "state_from_numpy", "state_to_numpy"]
 
@@ -62,7 +63,7 @@ def state_to_numpy(state: SimState) -> dict[str, np.ndarray]:
     """Every non-``None`` leaf of `state` as a host NumPy array; bf16
     leaves widened to float32 (exactly)."""
     return {
-        name: (leaf.float() if leaf.dtype == torch.bfloat16 else leaf).detach().cpu().numpy()
+        name: to_host(leaf.float() if leaf.dtype == torch.bfloat16 else leaf).numpy()
         for name, leaf in zip(SimState._fields, state)
         if leaf is not None
     }

@@ -24,6 +24,7 @@ from fluid2d_tpu_torch.ops.cuda_phases import (
 )
 from fluid2d_tpu_torch.scenes.compile import Scene
 from fluid2d_tpu_torch.state import SimState
+from fluid2d_tpu_torch.utils.trace import span
 
 __all__ = ["cip_step"]
 
@@ -31,43 +32,44 @@ __all__ = ["cip_step"]
 def cip_step(state: SimState, scene: Scene, cfg: SimConfig) -> SimState:
     """One CIP time step (``CipMacSolver.update``, ``fs/solver.py:192-202``;
     dye tail: ``DyeCipMacSolver.update``, ``:353-373``)."""
-    kernels = use_kernels(cfg, state.v)
-    velocity_phase = cip_velocity_phase_cuda if kernels else cip_velocity_phase_plain
-    v_cur, vx_cur, vy_cur, v_alt, vx_alt, vy_alt = velocity_phase(
-        state.v, state.p, state.v_alt, state.vx, state.vx_alt, state.vy, state.vy_alt,
-        scene, cfg.re, cfg.dt, cfg.dx,
-    )
-
-    if cfg.vor_eps is not None:
-        v_cur, v_alt = confinement(v_cur, v_alt, scene, cfg)
-
-    p_cur, p_alt, v_cur = update_pressure_and_limit(state.p, state.p_alt, v_cur, scene, cfg)
-
-    kw = dict(
-        step=state.step + 1,
-        v=v_cur,
-        v_alt=v_alt,
-        vx=vx_cur,
-        vx_alt=vx_alt,
-        vy=vy_cur,
-        vy_alt=vy_alt,
-        p=p_cur,
-        p_alt=p_alt,
-    )
-
-    if cfg.enable_dye:
-        dye_phase = cip_dye_phase_cuda if kernels else cip_dye_phase_plain
-        dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na = dye_phase(
-            state.dye, state.dye_alt, state.dyex, state.dyex_alt, state.dyey, state.dyey_alt,
-            v_cur, scene, cfg.re, cfg.dt, cfg.dx,
-        )
-        kw.update(
-            dye=dye_cur,
-            dye_alt=d_na,
-            dyex=dyex_cur,
-            dyex_alt=dx_na,
-            dyey=dyey_cur,
-            dyey_alt=dy_na,
+    with span("f2d.step"):
+        kernels = use_kernels(cfg, state.v)
+        velocity_phase = cip_velocity_phase_cuda if kernels else cip_velocity_phase_plain
+        v_cur, vx_cur, vy_cur, v_alt, vx_alt, vy_alt = velocity_phase(
+            state.v, state.p, state.v_alt, state.vx, state.vx_alt, state.vy, state.vy_alt,
+            scene, cfg.re, cfg.dt, cfg.dx,
         )
 
-    return state._replace(**kw)
+        if cfg.vor_eps is not None:
+            v_cur, v_alt = confinement(v_cur, v_alt, scene, cfg)
+
+        p_cur, p_alt, v_cur = update_pressure_and_limit(state.p, state.p_alt, v_cur, scene, cfg)
+
+        kw = dict(
+            step=state.step + 1,
+            v=v_cur,
+            v_alt=v_alt,
+            vx=vx_cur,
+            vx_alt=vx_alt,
+            vy=vy_cur,
+            vy_alt=vy_alt,
+            p=p_cur,
+            p_alt=p_alt,
+        )
+
+        if cfg.enable_dye:
+            dye_phase = cip_dye_phase_cuda if kernels else cip_dye_phase_plain
+            dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na = dye_phase(
+                state.dye, state.dye_alt, state.dyex, state.dyex_alt, state.dyey, state.dyey_alt,
+                v_cur, scene, cfg.re, cfg.dt, cfg.dx,
+            )
+            kw.update(
+                dye=dye_cur,
+                dye_alt=d_na,
+                dyex=dyex_cur,
+                dyex_alt=dx_na,
+                dyey=dyey_cur,
+                dyey_alt=dy_na,
+            )
+
+        return state._replace(**kw)

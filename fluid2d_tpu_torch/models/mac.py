@@ -28,6 +28,7 @@ from fluid2d_tpu_torch.ops.cuda_phases import (
 )
 from fluid2d_tpu_torch.scenes.compile import Scene
 from fluid2d_tpu_torch.state import SimState
+from fluid2d_tpu_torch.utils.trace import span
 
 __all__ = ["mac_step"]
 
@@ -35,22 +36,23 @@ __all__ = ["mac_step"]
 def mac_step(state: SimState, scene: Scene, cfg: SimConfig) -> SimState:
     """One MAC time step (``MacSolver.update``, ``fs/solver.py:79-89``;
     dye tail: ``DyeMacSolver.update``, ``:136-152``)."""
-    kernels = use_kernels(cfg, state.v)
-    velocity_phase = mac_velocity_phase_cuda if kernels else mac_velocity_phase_plain
-    v_cur, v_alt = velocity_phase(state.v, state.p, state.v_alt, scene, cfg.scheme, cfg.re,
-                                  cfg.dt, cfg.dx)
+    with span("f2d.step"):
+        kernels = use_kernels(cfg, state.v)
+        velocity_phase = mac_velocity_phase_cuda if kernels else mac_velocity_phase_plain
+        v_cur, v_alt = velocity_phase(state.v, state.p, state.v_alt, scene, cfg.scheme, cfg.re,
+                                      cfg.dt, cfg.dx)
 
-    if cfg.vor_eps is not None:
-        v_cur, v_alt = confinement(v_cur, v_alt, scene, cfg)
+        if cfg.vor_eps is not None:
+            v_cur, v_alt = confinement(v_cur, v_alt, scene, cfg)
 
-    p_cur, p_alt, v_cur = update_pressure_and_limit(state.p, state.p_alt, v_cur, scene, cfg)
+        p_cur, p_alt, v_cur = update_pressure_and_limit(state.p, state.p_alt, v_cur, scene, cfg)
 
-    kw = dict(step=state.step + 1, v=v_cur, v_alt=v_alt, p=p_cur, p_alt=p_alt)
+        kw = dict(step=state.step + 1, v=v_cur, v_alt=v_alt, p=p_cur, p_alt=p_alt)
 
-    if cfg.enable_dye:
-        dye_phase = mac_dye_phase_cuda if kernels else mac_dye_phase_plain
-        dye_cur, dc = dye_phase(state.dye, state.dye_alt, v_cur, scene, cfg.scheme, cfg.dt,
-                                cfg.dx)
-        kw.update(dye=dye_cur, dye_alt=dc)
+        if cfg.enable_dye:
+            dye_phase = mac_dye_phase_cuda if kernels else mac_dye_phase_plain
+            dye_cur, dc = dye_phase(state.dye, state.dye_alt, v_cur, scene, cfg.scheme, cfg.dt,
+                                    cfg.dx)
+            kw.update(dye=dye_cur, dye_alt=dc)
 
-    return state._replace(**kw)
+        return state._replace(**kw)

@@ -22,6 +22,7 @@ from fluid2d_tpu_torch.models.mac import mac_step
 from fluid2d_tpu_torch.scenes.compile import Scene, get_scene
 from fluid2d_tpu_torch.state import SimState, init_state
 from fluid2d_tpu_torch.utils import io as fio
+from fluid2d_tpu_torch.utils.trace import to_host
 from fluid2d_tpu_torch.utils.viz import render_rgb, to_image
 
 __all__ = ["FluidSimulator", "make_step_fn", "make_run_fn", "scene_for_dtype"]
@@ -141,16 +142,16 @@ class FluidSimulator:
         return render_rgb(state, scene, self.cfg, vis)
 
     def get_norm_field(self) -> np.ndarray:
-        return self.render(0).cpu().numpy()
+        return to_host(self.render(0)).numpy()
 
     def get_pressure_field(self) -> np.ndarray:
-        return self.render(1).cpu().numpy()
+        return to_host(self.render(1)).numpy()
 
     def get_vorticity_field(self) -> np.ndarray:
-        return self.render(2).cpu().numpy()
+        return to_host(self.render(2)).numpy()
 
     def get_dye_field(self) -> np.ndarray:
-        return self.render(3).cpu().numpy()
+        return to_host(self.render(3)).numpy()
 
     def screenshot(self, path: str | Path, vis: int = 0) -> None:
         """Render and write a PNG (the reference's ``s`` key,

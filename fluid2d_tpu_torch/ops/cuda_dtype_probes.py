@@ -36,8 +36,8 @@ Source notes (``csrc/dtype_probes.cu`` says more beside each kernel).
   slower than ``out.copy_``).
 
 Each wrapper takes CPU tensors to its plain version and launches its
-kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
-counts kernel runs.
+kernel on CUDA tensors; there is no other path. ``ops/launch.py:launch``
+counts kernel runs (``utils/trace.py:launches``).
 """
 
 from __future__ import annotations
@@ -141,11 +141,7 @@ def dtype_rate_cuda(x: torch.Tensor, passes: int, mode: str) -> torch.Tensor:
         n //= 2
     out = torch.empty_like(x)
     launch(name, dev, ptr, out.data_ptr(), n, steps, RATE_MODES.index(mode), *RATE_CONSTS)
-    dtype_rate_cuda.launches += 1
     return out
-
-
-dtype_rate_cuda.launches = 0
 
 
 def row_copy_plain(x: torch.Tensor, mode: str, t: int = 16) -> torch.Tensor:
@@ -189,8 +185,4 @@ def row_copy_cuda(x: torch.Tensor, mode: str, t: int = 16) -> torch.Tensor:
         raise ValueError(msg)
     out = torch.empty((t, cols), dtype=torch.float32, device=dev)
     launch(name, dev, ptr, out.data_ptr(), cols, t, COPY_MODES.index(mode))
-    row_copy_cuda.launches += 1
     return out
-
-
-row_copy_cuda.launches = 0

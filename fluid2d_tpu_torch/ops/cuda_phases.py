@@ -89,8 +89,9 @@ versions wherever the float32 ones are. Each C entry point takes a storage
 flag.
 
 Each wrapper takes CPU tensors to its plain version and launches its
-kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
-counts kernel runs.
+kernel on CUDA tensors; there is no other path. Each runs inside the span
+``f2d.phase.<name>`` (``utils/trace.py``), and ``ops/launch.py:launch``
+counts its kernel runs.
 """
 
 from __future__ import annotations
@@ -120,6 +121,7 @@ from fluid2d_tpu_torch.ops.stencil import diff_x, diff_y
 from fluid2d_tpu_torch.ops.vorticity import apply_confinement
 from fluid2d_tpu_torch.scenes.runtime_bc import dye_bc, velocity_bc
 from fluid2d_tpu_torch.utils.dtypes import f32
+from fluid2d_tpu_torch.utils.trace import span
 
 __all__ = [
     "confinement_cuda",
@@ -149,27 +151,24 @@ def confinement_plain(v, v_alt, fluid8, dt: float, weight: float, dx: float):
 def confinement_cuda(v, v_alt, fluid8, dt: float, weight: float, dx: float):
     """Vorticity confinement plus swap: ``v + dt·ε·f`` at fluid cells,
     ``v_alt`` elsewhere; the new alternate is the input `v` (no copy)."""
-    if _launch.TRAFFIC_LOG is not None:
-        log_traffic("confinement", operand_bytes(v, v_alt, fluid8) + operand_bytes(v))
-    if on_cpu(v, "confinement_cuda"):
-        return confinement_plain(v, v_alt, fluid8, dt, weight, dx)
-    dev, sd = v.device, v.dtype
-    bf16 = bf16_storage("confinement_cuda", sd)
-    _, x_rows, y_cols = v.shape
-    vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
-    ptrs = [
-        require(v, "v", vec, sd, dev),
-        require(v_alt, "v_alt", vec, sd, dev),
-        require(fluid8, "fluid8", plane, torch.int8, dev),
-    ]
-    v_out = torch.empty_like(v)
-    launch("f2d_confinement", dev, *ptrs, v_out.data_ptr(), x_rows, y_cols, bf16, recip32(dx),
-           dt * weight)
-    confinement_cuda.launches += 1
-    return v_out, v
-
-
-confinement_cuda.launches = 0
+    with span("f2d.phase.confinement"):
+        if _launch.TRAFFIC_LOG is not None:
+            log_traffic("confinement", operand_bytes(v, v_alt, fluid8) + operand_bytes(v))
+        if on_cpu(v, "confinement_cuda"):
+            return confinement_plain(v, v_alt, fluid8, dt, weight, dx)
+        dev, sd = v.device, v.dtype
+        bf16 = bf16_storage("confinement_cuda", sd)
+        _, x_rows, y_cols = v.shape
+        vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
+        ptrs = [
+            require(v, "v", vec, sd, dev),
+            require(v_alt, "v_alt", vec, sd, dev),
+            require(fluid8, "fluid8", plane, torch.int8, dev),
+        ]
+        v_out = torch.empty_like(v)
+        launch("f2d_confinement", dev, *ptrs, v_out.data_ptr(), x_rows, y_cols, bf16, recip32(dx),
+               dt * weight)
+        return v_out, v
 
 
 # --- CIP phases ---------------------------------------------------------------
@@ -215,38 +214,35 @@ def cip_velocity_phase_cuda(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
     """Whole CIP velocity phase: BC, non-advection, gradient update, CIP
     advection. Returns ``(v_cur, vx_cur, vy_cur, v_na, vx_na, vy_na)``;
     the last three become the alternate buffers."""
-    if _launch.TRAFFIC_LOG is not None:
-        log_traffic("cip_velocity_phase",
-                    operand_bytes(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene.bc_const,
-                                  scene.vbc_code, scene.not_wall8, scene.fluid8)
-                    + 6 * operand_bytes(v))
-    if on_cpu(v, "cip_velocity_phase_cuda"):
-        return cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene, re, dt, dx)
-    dev, sd = v.device, v.dtype
-    bf16 = bf16_storage("cip_velocity_phase_cuda", sd)
-    _, x_rows, y_cols = v.shape
-    vec, plane, i8 = (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
-    ptrs = [
-        require(v, "v", vec, sd, dev),
-        require(p, "p", plane, sd, dev),
-        require(v_alt, "v_alt", vec, sd, dev),
-        require(vx, "vx", vec, sd, dev),
-        require(vx_alt, "vx_alt", vec, sd, dev),
-        require(vy, "vy", vec, sd, dev),
-        require(vy_alt, "vy_alt", vec, sd, dev),
-        require(scene.bc_const, "scene.bc_const", vec, sd, dev),
-        require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
-        require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
-        require(scene.fluid8, "scene.fluid8", plane, i8, dev),
-    ]
-    outs = tuple(torch.empty_like(v) for _ in range(6))
-    launch("f2d_cip_velocity_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols,
-           bf16, *_cip_constants(re, dt, dx))
-    cip_velocity_phase_cuda.launches += 1
-    return outs
-
-
-cip_velocity_phase_cuda.launches = 0
+    with span("f2d.phase.cip_velocity"):
+        if _launch.TRAFFIC_LOG is not None:
+            log_traffic("cip_velocity_phase",
+                        operand_bytes(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene.bc_const,
+                                      scene.vbc_code, scene.not_wall8, scene.fluid8)
+                        + 6 * operand_bytes(v))
+        if on_cpu(v, "cip_velocity_phase_cuda"):
+            return cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene, re, dt, dx)
+        dev, sd = v.device, v.dtype
+        bf16 = bf16_storage("cip_velocity_phase_cuda", sd)
+        _, x_rows, y_cols = v.shape
+        vec, plane, i8 = (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
+        ptrs = [
+            require(v, "v", vec, sd, dev),
+            require(p, "p", plane, sd, dev),
+            require(v_alt, "v_alt", vec, sd, dev),
+            require(vx, "vx", vec, sd, dev),
+            require(vx_alt, "vx_alt", vec, sd, dev),
+            require(vy, "vy", vec, sd, dev),
+            require(vy_alt, "vy_alt", vec, sd, dev),
+            require(scene.bc_const, "scene.bc_const", vec, sd, dev),
+            require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
+            require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
+            require(scene.fluid8, "scene.fluid8", plane, i8, dev),
+        ]
+        outs = tuple(torch.empty_like(v) for _ in range(6))
+        launch("f2d_cip_velocity_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols,
+               bf16, *_cip_constants(re, dt, dx))
+        return outs
 
 
 def cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
@@ -273,39 +269,37 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
     """Whole CIP dye phase: inflow BC, diffusion, gradient update, CIP
     advection by `vel` (the limited velocity), [0, 1] clamp. Returns
     ``(dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na)``."""
-    if _launch.TRAFFIC_LOG is not None:
-        log_traffic("cip_dye_phase",
-                    operand_bytes(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene.bc_dye,
-                                  scene.inflow8, scene.not_wall8, scene.fluid8)
-                    + 6 * operand_bytes(dye))
-    if on_cpu(dye, "cip_dye_phase_cuda"):
-        return cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
-                                   re, dt, dx)
-    dev, sd = dye.device, dye.dtype
-    bf16 = bf16_storage("cip_dye_phase_cuda", sd)
-    chans, x_rows, y_cols = dye.shape
-    dyes, vec, plane, i8 = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
-    ptrs = [
-        require(dye, "dye", dyes, sd, dev),
-        require(dye_alt, "dye_alt", dyes, sd, dev),
-        require(dyex, "dyex", dyes, sd, dev),
-        require(dyex_alt, "dyex_alt", dyes, sd, dev),
-        require(dyey, "dyey", dyes, sd, dev),
-        require(dyey_alt, "dyey_alt", dyes, sd, dev),
-        require(vel, "vel", vec, sd, dev),
-        require(scene.bc_dye, "scene.bc_dye", dyes, sd, dev),
-        require(scene.inflow8, "scene.inflow8", plane, i8, dev),
-        require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
-        require(scene.fluid8, "scene.fluid8", plane, i8, dev),
-    ]
-    outs = tuple(torch.empty_like(dye) for _ in range(6))
-    launch("f2d_cip_dye_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols, chans,
-           bf16, *_cip_constants(re, dt, dx))
-    cip_dye_phase_cuda.launches += 1
-    return outs
-
-
-cip_dye_phase_cuda.launches = 0
+    with span("f2d.phase.cip_dye"):
+        if _launch.TRAFFIC_LOG is not None:
+            log_traffic("cip_dye_phase",
+                        operand_bytes(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel,
+                                      scene.bc_dye, scene.inflow8, scene.not_wall8, scene.fluid8)
+                        + 6 * operand_bytes(dye))
+        if on_cpu(dye, "cip_dye_phase_cuda"):
+            return cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
+                                       re, dt, dx)
+        dev, sd = dye.device, dye.dtype
+        bf16 = bf16_storage("cip_dye_phase_cuda", sd)
+        chans, x_rows, y_cols = dye.shape
+        dyes, vec = (chans, x_rows, y_cols), (2, x_rows, y_cols)
+        plane, i8 = (x_rows, y_cols), torch.int8
+        ptrs = [
+            require(dye, "dye", dyes, sd, dev),
+            require(dye_alt, "dye_alt", dyes, sd, dev),
+            require(dyex, "dyex", dyes, sd, dev),
+            require(dyex_alt, "dyex_alt", dyes, sd, dev),
+            require(dyey, "dyey", dyes, sd, dev),
+            require(dyey_alt, "dyey_alt", dyes, sd, dev),
+            require(vel, "vel", vec, sd, dev),
+            require(scene.bc_dye, "scene.bc_dye", dyes, sd, dev),
+            require(scene.inflow8, "scene.inflow8", plane, i8, dev),
+            require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
+            require(scene.fluid8, "scene.fluid8", plane, i8, dev),
+        ]
+        outs = tuple(torch.empty_like(dye) for _ in range(6))
+        launch("f2d_cip_dye_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols,
+               chans, bf16, *_cip_constants(re, dt, dx))
+        return outs
 
 
 # --- MAC phases -----------------------------------------------------------------
@@ -347,35 +341,32 @@ def mac_velocity_phase_plain(v, p, v_alt, scene, scheme: str, re: float, dt: flo
 def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: float, dx: float):
     """Whole MAC velocity phase: velocity BC, then the upwind or KK
     momentum update at fluid cells. Returns ``(v_cur, vc)``."""
-    _advect_fn(scheme)
-    if _launch.TRAFFIC_LOG is not None:
-        log_traffic(f"mac_velocity_phase_{scheme}",
-                    operand_bytes(v, p, v_alt, scene.bc_const, scene.vbc_code, scene.fluid8)
-                    + 2 * operand_bytes(v))
-    if on_cpu(v, "mac_velocity_phase_cuda"):
-        return mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx)
-    dev, sd = v.device, v.dtype
-    bf16 = bf16_storage("mac_velocity_phase_cuda", sd)
-    _, x_rows, y_cols = v.shape
-    vec, plane, i8 = (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
-    ptrs = [
-        require(v, "v", vec, sd, dev),
-        require(p, "p", plane, sd, dev),
-        require(v_alt, "v_alt", vec, sd, dev),
-        require(scene.bc_const, "scene.bc_const", vec, sd, dev),
-        require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
-        require(scene.fluid8, "scene.fluid8", plane, i8, dev),
-    ]
-    v_out = torch.empty_like(v)
-    v_bc = torch.empty_like(v)
-    launch("f2d_mac_velocity_phase", dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(), x_rows,
-           y_cols, int(scheme == "kk"), bf16, dt, recip32(dx), _inv_adv(scheme, dx),
-           recip32(dx**2), recip32(re))
-    mac_velocity_phase_cuda.launches += 1
-    return v_out, v_bc
-
-
-mac_velocity_phase_cuda.launches = 0
+    with span("f2d.phase.mac_velocity"):
+        _advect_fn(scheme)
+        if _launch.TRAFFIC_LOG is not None:
+            log_traffic(f"mac_velocity_phase_{scheme}",
+                        operand_bytes(v, p, v_alt, scene.bc_const, scene.vbc_code, scene.fluid8)
+                        + 2 * operand_bytes(v))
+        if on_cpu(v, "mac_velocity_phase_cuda"):
+            return mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx)
+        dev, sd = v.device, v.dtype
+        bf16 = bf16_storage("mac_velocity_phase_cuda", sd)
+        _, x_rows, y_cols = v.shape
+        vec, plane, i8 = (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
+        ptrs = [
+            require(v, "v", vec, sd, dev),
+            require(p, "p", plane, sd, dev),
+            require(v_alt, "v_alt", vec, sd, dev),
+            require(scene.bc_const, "scene.bc_const", vec, sd, dev),
+            require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
+            require(scene.fluid8, "scene.fluid8", plane, i8, dev),
+        ]
+        v_out = torch.empty_like(v)
+        v_bc = torch.empty_like(v)
+        launch("f2d_mac_velocity_phase", dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(), x_rows,
+               y_cols, int(scheme == "kk"), bf16, dt, recip32(dx), _inv_adv(scheme, dx),
+               recip32(dx**2), recip32(re))
+        return v_out, v_bc
 
 
 def mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: float):
@@ -396,31 +387,29 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
     """Whole MAC dye phase: inflow BC, upwind or KK advection by `vel`
     (the limited velocity) at fluid cells, [0, 1] clamp. Returns
     ``(dye_cur, dc)``."""
-    _advect_fn(scheme)
-    if _launch.TRAFFIC_LOG is not None:
-        log_traffic(f"mac_dye_phase_{scheme}",
-                    operand_bytes(dye, dye_alt, vel, scene.bc_dye, scene.inflow8, scene.fluid8)
-                    + 2 * operand_bytes(dye))
-    if on_cpu(dye, "mac_dye_phase_cuda"):
-        return mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx)
-    dev, sd = dye.device, dye.dtype
-    bf16 = bf16_storage("mac_dye_phase_cuda", sd)
-    chans, x_rows, y_cols = dye.shape
-    dyes, vec, plane, i8 = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
-    ptrs = [
-        require(dye, "dye", dyes, sd, dev),
-        require(dye_alt, "dye_alt", dyes, sd, dev),
-        require(vel, "vel", vec, sd, dev),
-        require(scene.bc_dye, "scene.bc_dye", dyes, sd, dev),
-        require(scene.inflow8, "scene.inflow8", plane, i8, dev),
-        require(scene.fluid8, "scene.fluid8", plane, i8, dev),
-    ]
-    d_out = torch.empty_like(dye)
-    d_bc = torch.empty_like(dye)
-    launch("f2d_mac_dye_phase", dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), x_rows, y_cols,
-           chans, int(scheme == "kk"), bf16, dt, _inv_adv(scheme, dx))
-    mac_dye_phase_cuda.launches += 1
-    return d_out, d_bc
-
-
-mac_dye_phase_cuda.launches = 0
+    with span("f2d.phase.mac_dye"):
+        _advect_fn(scheme)
+        if _launch.TRAFFIC_LOG is not None:
+            log_traffic(f"mac_dye_phase_{scheme}",
+                        operand_bytes(dye, dye_alt, vel, scene.bc_dye, scene.inflow8, scene.fluid8)
+                        + 2 * operand_bytes(dye))
+        if on_cpu(dye, "mac_dye_phase_cuda"):
+            return mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx)
+        dev, sd = dye.device, dye.dtype
+        bf16 = bf16_storage("mac_dye_phase_cuda", sd)
+        chans, x_rows, y_cols = dye.shape
+        dyes, vec = (chans, x_rows, y_cols), (2, x_rows, y_cols)
+        plane, i8 = (x_rows, y_cols), torch.int8
+        ptrs = [
+            require(dye, "dye", dyes, sd, dev),
+            require(dye_alt, "dye_alt", dyes, sd, dev),
+            require(vel, "vel", vec, sd, dev),
+            require(scene.bc_dye, "scene.bc_dye", dyes, sd, dev),
+            require(scene.inflow8, "scene.inflow8", plane, i8, dev),
+            require(scene.fluid8, "scene.fluid8", plane, i8, dev),
+        ]
+        d_out = torch.empty_like(dye)
+        d_bc = torch.empty_like(dye)
+        launch("f2d_mac_dye_phase", dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), x_rows, y_cols,
+               chans, int(scheme == "kk"), bf16, dt, _inv_adv(scheme, dx))
+        return d_out, d_bc

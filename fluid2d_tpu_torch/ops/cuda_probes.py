@@ -69,8 +69,8 @@ Source notes (``csrc/probes.cu`` says more beside each kernel).
   bytes.
 
 Each wrapper takes CPU tensors to its plain version and launches its
-kernel on CUDA tensors; there is no other path. ``<wrapper>.launches``
-counts kernel runs.
+kernel on CUDA tensors; there is no other path. ``ops/launch.py:launch``
+counts kernel runs (``utils/trace.py:launches``).
 """
 
 from __future__ import annotations
@@ -139,11 +139,7 @@ def copy_add1_cuda(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Te
         msg = "copy_add1_cuda: x and out must be 16-byte aligned (float4 loads)"
         raise ValueError(msg)
     launch("f2d_copy_add1", dev, *ptrs, x.numel())
-    copy_add1_cuda.launches += 1
     return out
-
-
-copy_add1_cuda.launches = 0
 
 
 # --- C3: mix twin -------------------------------------------------------------------
@@ -197,18 +193,14 @@ def mix_twin_plain(ops: MixOperands) -> tuple[torch.Tensor, ...]:
 def mix_twin_cuda(ops: MixOperands) -> tuple[torch.Tensor, ...]:
     """The mix twin over `ops`: on a card, the kernel writes the sum into
     ``ops.outs`` and returns them. A twin with bfloat16 planes goes to
-    :func:`mix_twin_bf16_cuda`, which counts its own launches."""
+    :func:`mix_twin_bf16_cuda`, whose own entry point is counted."""
     if ops.bf16_in or ops.n_out32 < len(ops.outs):
         return mix_twin_bf16_cuda(ops)
     if on_cpu(ops.f32_in[0], "mix_twin_cuda"):
         return mix_twin_plain(ops)
     launch("f2d_mix_twin", ops.device, ops.table.data_ptr(), len(ops.f32_in), len(ops.i8_in),
            len(ops.outs), ops.plane[0] * ops.plane[1])
-    mix_twin_cuda.launches += 1
     return ops.outs
-
-
-mix_twin_cuda.launches = 0
 
 
 def mix_twin_bf16_cuda(ops: MixOperands) -> tuple[torch.Tensor, ...]:
@@ -221,11 +213,7 @@ def mix_twin_bf16_cuda(ops: MixOperands) -> tuple[torch.Tensor, ...]:
     launch("f2d_mix_twin_bf16", ops.device, ops.table.data_ptr(), len(ops.f32_in),
            len(ops.bf16_in), len(ops.i8_in), ops.n_out32, n_out - ops.n_out32,
            ops.plane[0] * ops.plane[1])
-    mix_twin_bf16_cuda.launches += 1
     return ops.outs
-
-
-mix_twin_bf16_cuda.launches = 0
 
 
 # --- C4: FMA rate ---------------------------------------------------------------------
@@ -282,11 +270,7 @@ def fma_rate_cuda(x: torch.Tensor, passes: int) -> torch.Tensor:
     ptr = require(x, "x", tuple(x.shape), torch.float32, dev)
     out = torch.empty_like(x)
     launch("f2d_fma_rate", dev, ptr, out.data_ptr(), x.numel(), rounds, _C1, _C2)
-    fma_rate_cuda.launches += 1
     return out
-
-
-fma_rate_cuda.launches = 0
 
 
 # --- C5d: FMA-rate sweep --------------------------------------------------------------
@@ -309,11 +293,7 @@ def fma_sweep_cuda(x: torch.Tensor, passes: int, nchain: int, threads: int = 256
     ptr = require(x, "x", tuple(x.shape), torch.float32, dev)
     out = torch.empty_like(x)
     launch("f2d_fma_sweep", dev, ptr, out.data_ptr(), x.numel(), rounds, nchain, threads, _C1, _C2)
-    fma_sweep_cuda.launches += 1
     return out
-
-
-fma_sweep_cuda.launches = 0
 
 
 # --- C5e, C5f: geometry twin ----------------------------------------------------------
@@ -386,11 +366,7 @@ def geometry_twin_cuda(ops: GeometryOperands) -> tuple[torch.Tensor, ...]:
     launch("f2d_geometry_twin", ops.device, ops.table.data_ptr(), len(ops.chan_in),
            len(ops.shared_in), len(ops.i8_in), len(ops.outs), *ops.plane, ops.channels, ops.h,
            ops.block_rows)
-    geometry_twin_cuda.launches += 1
     return ops.outs
-
-
-geometry_twin_cuda.launches = 0
 
 
 # --- C5g: row window ------------------------------------------------------------------
@@ -484,11 +460,7 @@ def row_window_cuda(a: torch.Tensor, t: int, h: int = 8) -> torch.Tensor:
         raise ValueError(msg)
     out = torch.empty_like(a)
     launch("f2d_row_window", dev, ptr, out.data_ptr(), x_rows, y_cols, t, h, slots)
-    row_window_cuda.launches += 1
     return out
-
-
-row_window_cuda.launches = 0
 
 
 # --- C6: the el-op counter's toy kernels ----------------------------------------------
@@ -521,8 +493,4 @@ def toy_elementwise_cuda(x: torch.Tensor, op: str) -> torch.Tensor:
     out = torch.empty_like(x)
     c = {"mul2add1": 2.0, "div3": recip32(3.0), "mul3": 3.0}[op]
     launch("f2d_toy_elementwise", dev, ptr, out.data_ptr(), x.numel(), TOY_OPS.index(op), c)
-    toy_elementwise_cuda.launches += 1
     return out
-
-
-toy_elementwise_cuda.launches = 0

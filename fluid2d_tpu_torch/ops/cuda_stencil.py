@@ -118,6 +118,7 @@ from fluid2d_tpu_torch.ops.launch import (
 from fluid2d_tpu_torch.ops.limiters import limit_vector_norm
 from fluid2d_tpu_torch.ops.pressure import jacobi_pressure_iteration, sor_pressure_iteration
 from fluid2d_tpu_torch.utils.dtypes import f32, to_transport
+from fluid2d_tpu_torch.utils.trace import span
 
 __all__ = [
     "sor_iteration_cuda",
@@ -232,40 +233,37 @@ def sor_iteration_cuda(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: f
     ``csrc/sor.cu``; anything the kernel does not take (dtype, shape,
     layout, mixed devices) raises. Outputs are fresh tensors.
     """
-    _check_n_iters(n_iters, SOR_MAX_ITERS, "SOR")
-    sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "sor_iteration_cuda")
-    if _launch.TRAFFIC_LOG is not None:
-        name = "sor_iteration" + ("" if n_iters == 1 else f"_n{n_iters}")
-        _log_pressure(name, p_cur, p_alt, u, w, pbc_code, fluid8, v_limit, out_dt)
-    if on_cpu(p_cur, "sor_iteration_cuda"):
-        return sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega, dt, dx,
-                                   n_iters=n_iters, v_limit=v_limit, out_dtype=out_dt)
-    dev = p_cur.device
-    x_rows, y_cols = p_cur.shape
-    plane = (x_rows, y_cols)
-    i8 = torch.int8
-    ptrs = [
-        require(p_cur, "p_cur", plane, in_dt, dev),
-        require(p_alt, "p_alt", plane, in_dt, dev),
-        require(u, "u", plane, sd, dev),
-        require(w, "w", plane, sd, dev),
-        require(pbc_code, "pbc_code", plane, i8, dev),
-        require(fluid8, "fluid8", plane, i8, dev),
-    ]
-    p_out = torch.empty(plane, dtype=out_dt, device=dev)
-    p_bc = torch.empty_like(p_out)
-    v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
-    launch("f2d_sor_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(), _ptr(v_lim),
-           x_rows, y_cols, n_iters, bf16_storage("sor_iteration_cuda", sd),
-           int(in_dt != torch.float32), int(out_dt != torch.float32),
-           omega, 1.0 - omega, dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
-    sor_iteration_cuda.launches += 1
-    if v_lim is None:
-        return p_out, p_bc
-    return p_out, p_bc, v_lim
-
-
-sor_iteration_cuda.launches = 0  # kernel runs (one __global__ launch each)
+    with span("f2d.phase.sor"):
+        _check_n_iters(n_iters, SOR_MAX_ITERS, "SOR")
+        sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "sor_iteration_cuda")
+        if _launch.TRAFFIC_LOG is not None:
+            name = "sor_iteration" + ("" if n_iters == 1 else f"_n{n_iters}")
+            _log_pressure(name, p_cur, p_alt, u, w, pbc_code, fluid8, v_limit, out_dt)
+        if on_cpu(p_cur, "sor_iteration_cuda"):
+            return sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega, dt, dx,
+                                       n_iters=n_iters, v_limit=v_limit, out_dtype=out_dt)
+        dev = p_cur.device
+        x_rows, y_cols = p_cur.shape
+        plane = (x_rows, y_cols)
+        i8 = torch.int8
+        ptrs = [
+            require(p_cur, "p_cur", plane, in_dt, dev),
+            require(p_alt, "p_alt", plane, in_dt, dev),
+            require(u, "u", plane, sd, dev),
+            require(w, "w", plane, sd, dev),
+            require(pbc_code, "pbc_code", plane, i8, dev),
+            require(fluid8, "fluid8", plane, i8, dev),
+        ]
+        p_out = torch.empty(plane, dtype=out_dt, device=dev)
+        p_bc = torch.empty_like(p_out)
+        v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
+        launch("f2d_sor_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(), _ptr(v_lim),
+               x_rows, y_cols, n_iters, bf16_storage("sor_iteration_cuda", sd),
+               int(in_dt != torch.float32), int(out_dt != torch.float32),
+               omega, 1.0 - omega, dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
+        if v_lim is None:
+            return p_out, p_bc
+        return p_out, p_bc, v_lim
 
 
 class _JacobiMasks:
@@ -307,40 +305,37 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
     ``csrc/jacobi.cu``; anything the kernel does not take raises. Outputs
     are fresh tensors.
     """
-    _check_n_iters(n_iters, JACOBI_MAX_ITERS, "Jacobi")
-    sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "jacobi_iteration_cuda")
-    if _launch.TRAFFIC_LOG is not None:
-        _log_pressure(f"jacobi_iteration_n{n_iters}", p_cur, p_alt, u, w, pbc_code, not_wall8,
-                      v_limit, out_dt)
-    if on_cpu(p_cur, "jacobi_iteration_cuda"):
-        return jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt, dx,
-                                      n_iters=n_iters, v_limit=v_limit, out_dtype=out_dt)
-    dev = p_cur.device
-    x_rows, y_cols = p_cur.shape
-    plane = (x_rows, y_cols)
-    i8 = torch.int8
-    ptrs = [
-        require(p_cur, "p_cur", plane, in_dt, dev),
-        require(p_alt, "p_alt", plane, in_dt, dev),
-        require(u, "u", plane, sd, dev),
-        require(w, "w", plane, sd, dev),
-        require(pbc_code, "pbc_code", plane, i8, dev),
-        require(not_wall8, "not_wall8", plane, i8, dev),
-    ]
-    p_out = torch.empty(plane, dtype=out_dt, device=dev)
-    p_bc = torch.empty_like(p_out)
-    v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
-    launch("f2d_jacobi_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(), _ptr(v_lim),
-           x_rows, y_cols, n_iters, bf16_storage("jacobi_iteration_cuda", sd),
-           int(in_dt != torch.float32), int(out_dt != torch.float32),
-           dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
-    jacobi_iteration_cuda.launches += 1
-    if v_lim is None:
-        return p_out, p_bc
-    return p_out, p_bc, v_lim
-
-
-jacobi_iteration_cuda.launches = 0  # kernel runs (one __global__ launch each)
+    with span("f2d.phase.jacobi"):
+        _check_n_iters(n_iters, JACOBI_MAX_ITERS, "Jacobi")
+        sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "jacobi_iteration_cuda")
+        if _launch.TRAFFIC_LOG is not None:
+            _log_pressure(f"jacobi_iteration_n{n_iters}", p_cur, p_alt, u, w, pbc_code, not_wall8,
+                          v_limit, out_dt)
+        if on_cpu(p_cur, "jacobi_iteration_cuda"):
+            return jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt, dx,
+                                          n_iters=n_iters, v_limit=v_limit, out_dtype=out_dt)
+        dev = p_cur.device
+        x_rows, y_cols = p_cur.shape
+        plane = (x_rows, y_cols)
+        i8 = torch.int8
+        ptrs = [
+            require(p_cur, "p_cur", plane, in_dt, dev),
+            require(p_alt, "p_alt", plane, in_dt, dev),
+            require(u, "u", plane, sd, dev),
+            require(w, "w", plane, sd, dev),
+            require(pbc_code, "pbc_code", plane, i8, dev),
+            require(not_wall8, "not_wall8", plane, i8, dev),
+        ]
+        p_out = torch.empty(plane, dtype=out_dt, device=dev)
+        p_bc = torch.empty_like(p_out)
+        v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
+        launch("f2d_jacobi_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(), _ptr(v_lim),
+               x_rows, y_cols, n_iters, bf16_storage("jacobi_iteration_cuda", sd),
+               int(in_dt != torch.float32), int(out_dt != torch.float32),
+               dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
+        if v_lim is None:
+            return p_out, p_bc
+        return p_out, p_bc, v_lim
 
 
 # --- C1: standalone CIP advection ---------------------------------------------------
@@ -380,49 +375,46 @@ def cip_advect_cuda(f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8, dt: float, dx
     ``csrc/cip_phases.cu`` ``f2d_cip_advect``; anything the kernel does not
     take raises.
     """
-    vel_is_f = vel is f
-    if f.dim() != 3 or (vel_is_f and f.shape[0] < 2):
-        msg = (f"cip_advect_cuda: f is (C, X, Y), C ≥ 2 when the velocity is f; "
-               f"got {tuple(f.shape)}")
-        raise ValueError(msg)
-    if f.dtype not in STORAGE_DTYPES:
-        msg = f"cip_advect_cuda: f is {f.dtype}; expected one of {STORAGE_DTYPES}"
-        raise TypeError(msg)
-    ins = (f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8)
-    if out is not None:
-        require_no_alias(out, ins, "cip_advect_cuda")
-    chans = f.shape[0]
-    if _launch.TRAFFIC_LOG is not None:
-        operands = ins if not vel_is_f else (f, fx, fy, alt_f, alt_fx, alt_fy, fluid8)
-        log_traffic(cip_advect_name(chans, vel_is_f), operand_bytes(*operands)
-                    + 3 * operand_bytes(f))
-    if on_cpu(f, "cip_advect_cuda"):
-        got = cip_advect_plain(*ins, dt, dx)
+    with span("f2d.phase.cip_advect"):
+        vel_is_f = vel is f
+        if f.dim() != 3 or (vel_is_f and f.shape[0] < 2):
+            msg = (f"cip_advect_cuda: f is (C, X, Y), C ≥ 2 when the velocity is f; "
+                   f"got {tuple(f.shape)}")
+            raise ValueError(msg)
+        if f.dtype not in STORAGE_DTYPES:
+            msg = f"cip_advect_cuda: f is {f.dtype}; expected one of {STORAGE_DTYPES}"
+            raise TypeError(msg)
+        ins = (f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8)
+        if out is not None:
+            require_no_alias(out, ins, "cip_advect_cuda")
+        chans = f.shape[0]
+        if _launch.TRAFFIC_LOG is not None:
+            operands = ins if not vel_is_f else (f, fx, fy, alt_f, alt_fx, alt_fy, fluid8)
+            log_traffic(cip_advect_name(chans, vel_is_f), operand_bytes(*operands)
+                        + 3 * operand_bytes(f))
+        if on_cpu(f, "cip_advect_cuda"):
+            got = cip_advect_plain(*ins, dt, dx)
+            if out is None:
+                return got
+            for o, g in zip(out, got):
+                o.copy_(g)
+            return tuple(out)
+        dev, sd = f.device, f.dtype
+        _, x_rows, y_cols = f.shape
+        field, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
+        ptrs = [require(t, name, field, sd, dev)
+                for t, name in ((f, "f"), (fx, "fx"), (fy, "fy"))]
+        v_ptr = ptrs[0] if vel_is_f else require(vel, "vel", vec, sd, dev)
+        ptrs += [v_ptr, v_ptr + x_rows * y_cols * f.element_size()]
+        ptrs += [require(t, name, field, sd, dev)
+                 for t, name in ((alt_f, "alt_f"), (alt_fx, "alt_fx"), (alt_fy, "alt_fy"))]
+        ptrs.append(require(fluid8, "fluid8", plane, torch.int8, dev))
         if out is None:
-            return got
-        for o, g in zip(out, got):
-            o.copy_(g)
-        return tuple(out)
-    dev, sd = f.device, f.dtype
-    _, x_rows, y_cols = f.shape
-    field, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
-    ptrs = [require(t, name, field, sd, dev)
-            for t, name in ((f, "f"), (fx, "fx"), (fy, "fy"))]
-    v_ptr = ptrs[0] if vel_is_f else require(vel, "vel", vec, sd, dev)
-    ptrs += [v_ptr, v_ptr + x_rows * y_cols * f.element_size()]
-    ptrs += [require(t, name, field, sd, dev)
-             for t, name in ((alt_f, "alt_f"), (alt_fx, "alt_fx"), (alt_fy, "alt_fy"))]
-    ptrs.append(require(fluid8, "fluid8", plane, torch.int8, dev))
-    if out is None:
-        out = tuple(torch.empty_like(f) for _ in range(3))
-    else:
-        out = tuple(out)
-        for k, o in enumerate(out):
-            require(o, f"out[{k}]", field, sd, dev)
-    launch("f2d_cip_advect", dev, *ptrs, *(o.data_ptr() for o in out), x_rows, y_cols, chans,
-           int(sd == torch.bfloat16), dt, dx, dx**2, dx**3, recip32(dx), recip32(dx**2))
-    cip_advect_cuda.launches += 1
-    return out
-
-
-cip_advect_cuda.launches = 0
+            out = tuple(torch.empty_like(f) for _ in range(3))
+        else:
+            out = tuple(out)
+            for k, o in enumerate(out):
+                require(o, f"out[{k}]", field, sd, dev)
+        launch("f2d_cip_advect", dev, *ptrs, *(o.data_ptr() for o in out), x_rows, y_cols, chans,
+               int(sd == torch.bfloat16), dt, dx, dx**2, dx**3, recip32(dx), recip32(dx**2))
+        return out

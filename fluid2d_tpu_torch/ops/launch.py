@@ -7,7 +7,9 @@ A field is stored as float32 or bfloat16 (the transport dtype,
 (:func:`bf16_storage`) or has one version per storage type,
 ``f2d_<kernel>`` and ``f2d_<kernel>_bf16`` (:func:`entry`).
 The kernel library is imported and built only when a CUDA tensor is
-launched on, never when a module is imported.
+launched on, never when a module is imported. :func:`launch` counts each
+call in ``utils/trace.py:launches`` under its entry point and runs inside
+the span ``f2d.launch``.
 
 The byte ledger: while ``TRAFFIC_LOG`` is a list, every phase wrapper
 appends ``(kernel name with variant, bytes)`` on entry, before it routes by
@@ -24,6 +26,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from fluid2d_tpu_torch.utils.trace import launches, span
 
 __all__ = ["on_cpu", "require", "require_no_alias", "launch", "recip32", "TRAFFIC_LOG",
            "log_traffic", "operand_bytes", "STORAGE_DTYPES", "bf16_storage", "entry"]
@@ -118,11 +122,13 @@ def require_no_alias(outs, ins, wrapper: str) -> None:
 def launch(entry: str, device: torch.device, *args) -> None:
     """Call C entry point `entry` of the kernel library on `device`'s
     current stream (appended as the last argument); raise on a CUDA
-    error."""
-    from fluid2d_tpu_torch.ops import _build
+    error. Counts one launch of `entry` once it is enqueued."""
+    with span("f2d.launch"):
+        from fluid2d_tpu_torch.ops import _build
 
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
-    _build.check(lib, rc, entry)
+        lib = _build.load_library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+        _build.check(lib, rc, entry)
+        launches[entry] += 1

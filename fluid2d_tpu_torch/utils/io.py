@@ -24,6 +24,7 @@ import torch
 from fluid2d_tpu_torch.config import SimConfig, resolve_device
 from fluid2d_tpu_torch.convert import state_from_numpy, state_to_numpy
 from fluid2d_tpu_torch.state import SimState
+from fluid2d_tpu_torch.utils.trace import to_host
 
 __all__ = [
     "fields_to_numpy",
@@ -48,7 +49,7 @@ _KERNELS_FROM_JAX = {"auto": "auto", "pallas": "auto", "pallas_interpret": "auto
 def _host(leaf: torch.Tensor) -> np.ndarray:
     """A leaf as a host array; bf16 widened to float32 (exact: npz has no
     bfloat16)."""
-    return (leaf.float() if leaf.dtype == torch.bfloat16 else leaf).detach().cpu().numpy()
+    return to_host(leaf.float() if leaf.dtype == torch.bfloat16 else leaf).numpy()
 
 
 def fields_to_numpy(state: SimState) -> dict[str, np.ndarray]:

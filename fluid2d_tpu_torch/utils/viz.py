@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from fluid2d_tpu_torch.ops.stencil import diff_x, diff_y
+from fluid2d_tpu_torch.utils.trace import span, to_host
 
 __all__ = [
     "WALL_COLOR",
@@ -146,8 +147,12 @@ def render_rgb(state, scene, cfg, vis: int | str = 0):
 def to_image(rgb) -> np.ndarray:
     """(X, Y, 3) float frame (a tensor on any device, or an array) → uint8
     H×W×3 image in screen orientation (y up → row 0 at top, x to the
-    right). A tensor is moved to the host once."""
-    arr = rgb.detach().cpu().numpy() if isinstance(rgb, torch.Tensor) else np.asarray(rgb)
-    arr = np.clip(arr, 0.0, 1.0)
-    arr = np.flip(arr.transpose(1, 0, 2), axis=0)  # (Y, X, 3), top row = max y
-    return (arr * 255.0 + 0.5).astype(np.uint8)
+    right). A tensor is moved to the host once, in the span
+    ``f2d.to_image.d2h`` (the wait for the queue and the copy); the clip,
+    scale and cast run in ``f2d.to_image.convert``."""
+    with span("f2d.to_image.d2h"):
+        arr = to_host(rgb).numpy() if isinstance(rgb, torch.Tensor) else np.asarray(rgb)
+    with span("f2d.to_image.convert"):
+        arr = np.clip(arr, 0.0, 1.0)
+        arr = np.flip(arr.transpose(1, 0, 2), axis=0)  # (Y, X, 3), top row = max y
+        return (arr * 255.0 + 0.5).astype(np.uint8)

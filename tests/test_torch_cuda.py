@@ -61,7 +61,8 @@ import torch
 
 from fluid2d_tpu_torch import SimConfig, get_scene, init_state, make_run_fn, scene_for_dtype
 from fluid2d_tpu_torch.ops import cuda_dtype_probes, cuda_phases, cuda_probes, cuda_stencil
-from fluid2d_tpu_torch.utils import profiling
+from fluid2d_tpu_torch.utils import profiling, trace
+from fluid2d_tpu_torch.utils.trace import launches
 
 torch.set_num_threads(1)
 
@@ -74,6 +75,15 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     return torch.device("cuda", 0)
+
+
+def _runs(wrapper) -> int:
+    """Kernel runs so far of the C entry points `wrapper` launches (the
+    launch counter, ``utils/trace.py``): ``f2d_<name>``, and its ``_bf16``
+    twin for the wrappers that take one entry point per storage type."""
+    base = "f2d_" + wrapper.__name__.removesuffix("_cuda")
+    twins = (cuda_dtype_probes.dtype_rate_cuda, cuda_dtype_probes.row_copy_cuda)
+    return launches[base] + (launches[base + "_bf16"] if wrapper in twins else 0)
 
 
 def _assert_close(got, ref, what, tol):
@@ -136,10 +146,10 @@ KERNEL_IDS = ["sor", "sor_v_limit", "confinement", "cip_velocity", "cip_dye",
 @pytest.mark.parametrize("which", range(len(KERNEL_IDS)), ids=KERNEL_IDS)
 def test_cuda_kernel_matches_plain(cuda_device, which, res):
     wrapper, plain, args, kwargs = _kernel_calls(res, cuda_device)[which]
-    before = wrapper.launches
+    before = _runs(wrapper)
     got = wrapper(*args, **kwargs)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert _runs(wrapper) == before + 1
     _assert_close(got, plain(*args, **kwargs), wrapper.__name__, 1e-5)
 
 
@@ -225,10 +235,10 @@ def _assert_bit_equal(got, ref, what):
 def test_cuda_bf16_kernel_bit_equal_to_plain(cuda_device, which, res):
     name, wrapper, plain, args, kwargs = _bf16_calls(res, cuda_device)[which]
     assert name == BF16_IDS[which]
-    before = wrapper.launches
+    before = _runs(wrapper)
     got = wrapper(*args, **kwargs)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert _runs(wrapper) == before + 1
     _assert_bit_equal(got, plain(*args, **kwargs), BF16_IDS[which])
 
 
@@ -276,9 +286,9 @@ def test_cuda_dtype_rate_matches_plain(cuda_device, mode, dtype, inputs):
     flat = (2.0 + torch.rand(n + skip, generator=gen)).to(dtype).to(cuda_device)
     x = flat[skip:].view(1, n)
     assert x.data_ptr() % 16 == offset
-    before = cuda_dtype_probes.dtype_rate_cuda.launches
+    before = _runs(cuda_dtype_probes.dtype_rate_cuda)
     res = check_dtype_rate(mode, dtype, cuda_device, passes=3072, x=x)
-    assert cuda_dtype_probes.dtype_rate_cuda.launches == before + 2
+    assert _runs(cuda_dtype_probes.dtype_rate_cuda) == before + 2
     assert res["max_err_ulps"] <= res["tol_ulps"] < res["one_step_off_min_ulps"]
     assert res["max_err_ulps_deep"] <= res["tol_ulps"]
 
@@ -300,11 +310,11 @@ def test_cuda_row_copy_bit_equal(cuda_device, mode, dtype):
                                  "jacobi_iteration_n4_f32out"])
 def test_cuda_bf16_mix_twin_bit_equal(cuda_device, mix):
     ops = profiling.twin_operands(mix, 2 * RAGGED_RES, RAGGED_RES, cuda_device, "bfloat16")
-    before = (cuda_probes.mix_twin_cuda.launches, cuda_probes.mix_twin_bf16_cuda.launches)
+    before = (_runs(cuda_probes.mix_twin_cuda), _runs(cuda_probes.mix_twin_bf16_cuda))
     got = cuda_probes.mix_twin_cuda(ops)
     torch.cuda.synchronize()
-    assert (cuda_probes.mix_twin_cuda.launches,
-            cuda_probes.mix_twin_bf16_cuda.launches) == (before[0], before[1] + 1)
+    assert (_runs(cuda_probes.mix_twin_cuda),
+            _runs(cuda_probes.mix_twin_bf16_cuda)) == (before[0], before[1] + 1)
     _assert_bit_equal(got, cuda_probes.mix_twin_plain(ops), mix)
 
 
@@ -364,12 +374,12 @@ def test_cuda_copy_add1_is_bit_equal(cuda_device, n):
     """C2 over whole float4s and a ragged tail: bit-equal to x + 1."""
     gen = torch.Generator(device="cpu").manual_seed(n)
     x = torch.randn(n, generator=gen).to(cuda_device)
-    before = cuda_probes.copy_add1_cuda.launches
+    before = _runs(cuda_probes.copy_add1_cuda)
     got = cuda_probes.copy_add1_cuda(x)
     out = torch.empty_like(x)
     into = cuda_probes.copy_add1_cuda(x, out=out)
     torch.cuda.synchronize()
-    assert cuda_probes.copy_add1_cuda.launches == before + 2
+    assert _runs(cuda_probes.copy_add1_cuda) == before + 2
     assert into is out
     assert torch.equal(got, x + 1) and torch.equal(out, x + 1)
 
@@ -380,11 +390,11 @@ def test_cuda_mix_twin_matches_plain(cuda_device, mix):
     """C3 on two registered mixes at a ragged grid: within 1e-5 of the
     plain sum (the same additions in the same order)."""
     ops = profiling.twin_operands(mix, 2 * RAGGED_RES, RAGGED_RES, cuda_device)
-    before = (cuda_probes.mix_twin_cuda.launches, cuda_probes.mix_twin_bf16_cuda.launches)
+    before = (_runs(cuda_probes.mix_twin_cuda), _runs(cuda_probes.mix_twin_bf16_cuda))
     got = cuda_probes.mix_twin_cuda(ops)
     torch.cuda.synchronize()
-    assert (cuda_probes.mix_twin_cuda.launches,
-            cuda_probes.mix_twin_bf16_cuda.launches) == (before[0] + 1, before[1])
+    assert (_runs(cuda_probes.mix_twin_cuda),
+            _runs(cuda_probes.mix_twin_bf16_cuda)) == (before[0] + 1, before[1])
     assert len(got) == sum(profiling._KERNEL_MIXES[mix]["f_out"])
     _assert_close(got, cuda_probes.mix_twin_plain(ops), mix, 1e-5)
 
@@ -395,10 +405,10 @@ def test_cuda_fma_rate_matches_plain_at_shallow_depth(cuda_device):
     two, within 1e-5·max(1, |ref|max)."""
     gen = torch.Generator(device="cpu").manual_seed(7)
     x = torch.rand((256, 1024), generator=gen).to(cuda_device)
-    before = cuda_probes.fma_rate_cuda.launches
+    before = _runs(cuda_probes.fma_rate_cuda)
     got = cuda_probes.fma_rate_cuda(x, 64)
     torch.cuda.synchronize()
-    assert cuda_probes.fma_rate_cuda.launches == before + 1
+    assert _runs(cuda_probes.fma_rate_cuda) == before + 1
     _assert_close([got], [cuda_probes.fma_rate_plain(x, 64)], "fma_rate", 1e-5)
     with pytest.raises(AssertionError, match="max error"):  # one round short is seen
         _assert_close([got], [cuda_probes.fma_rate_plain(x, 56)], "fma_rate", 1e-5)
@@ -474,19 +484,19 @@ def test_cuda_cip_advect_matches_plain(cuda_device, self_advect, dtype, grid):
 
     args = _advect_args(grid, dtype, self_advect, cuda_device)
     ref = cip_advect_plain(*args)
-    before = cip_advect_cuda.launches
+    before = _runs(cip_advect_cuda)
     got = cip_advect_cuda(*args)
     torch.cuda.synchronize()
-    assert cip_advect_cuda.launches == before + 1
+    assert _runs(cip_advect_cuda) == before + 1
     _assert_bit_equal(got, ref, "cip_advect")
     out = tuple(torch.full_like(args[0], float("nan")) for _ in range(3))
     got = cip_advect_cuda(*args, out=out)
     torch.cuda.synchronize()
-    assert cip_advect_cuda.launches == before + 2 and all(g is o for g, o in zip(got, out))
+    assert _runs(cip_advect_cuda) == before + 2 and all(g is o for g, o in zip(got, out))
     _assert_bit_equal(got, ref, "cip_advect out=")
     with pytest.raises(ValueError, match="aliases"):
         cip_advect_cuda(*args, out=(args[4], torch.empty_like(args[0]), torch.empty_like(args[0])))
-    assert cip_advect_cuda.launches == before + 2
+    assert _runs(cip_advect_cuda) == before + 2
 
 
 @pytest.mark.cuda
@@ -498,11 +508,11 @@ def test_cuda_fma_sweep_within_bound(cuda_device, nchain, threads):
     from fluid2d_tpu_torch.scripts.vpu_rate_sweep import check_chains
 
     x = torch.rand((64, 1024), generator=torch.Generator().manual_seed(nchain)).to(cuda_device)
-    before = cuda_probes.fma_sweep_cuda.launches
+    before = _runs(cuda_probes.fma_sweep_cuda)
     for depth in (64, 1024):
         res = check_chains(x, nchain, depth, threads)
         assert res["max_abs_err"] <= res["bound"] < res["one_round_short_min_err"]
-    assert cuda_probes.fma_sweep_cuda.launches == before + 2
+    assert _runs(cuda_probes.fma_sweep_cuda) == before + 2
 
 
 @pytest.mark.cuda
@@ -519,10 +529,10 @@ def test_cuda_geometry_twin_matches_plain(cuda_device, h, channels):
         shared_in=[torch.randn((x, y), generator=gen).to(cuda_device)],
         i8_in=[torch.randint(-3, 4, (x, y), generator=gen, dtype=torch.int8).to(cuda_device)],
         n_out=2, h=h, block_rows=4)
-    before = cuda_probes.geometry_twin_cuda.launches
+    before = _runs(cuda_probes.geometry_twin_cuda)
     got = cuda_probes.geometry_twin_cuda(ops)
     torch.cuda.synchronize()
-    assert cuda_probes.geometry_twin_cuda.launches == before + 1
+    assert _runs(cuda_probes.geometry_twin_cuda) == before + 1
     _assert_close(got, cuda_probes.geometry_twin_plain(ops), "geometry_twin", 1e-5)
 
 
@@ -550,10 +560,10 @@ def test_cuda_row_window_persistent_blocks(cuda_device, per_block):
     shape = (16 * sms * per_block, 1600)
     assert cuda_probes.row_window_tile(*shape) == 16 and cuda_probes.row_window_slots(1600) == 4
     a = torch.randn(shape, generator=torch.Generator().manual_seed(per_block)).to(cuda_device)
-    before = cuda_probes.row_window_cuda.launches
+    before = _runs(cuda_probes.row_window_cuda)
     got = cuda_probes.row_window_cuda(a, 16)
     torch.cuda.synchronize()
-    assert cuda_probes.row_window_cuda.launches == before + 1
+    assert _runs(cuda_probes.row_window_cuda) == before + 1
     assert torch.equal(got, 2.0 * a)
     assert torch.equal(got, cuda_probes.row_window_plain(a, 16))
 
@@ -565,10 +575,10 @@ def test_cuda_toy_elementwise_bit_equal(cuda_device, op, shape):
     """C6: each toy bit-equal to its plain version on the card (the division
     as PyTorch's CUDA division by a Python scalar rounds it)."""
     x = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(cuda_device)
-    before = cuda_probes.toy_elementwise_cuda.launches
+    before = _runs(cuda_probes.toy_elementwise_cuda)
     got = cuda_probes.toy_elementwise_cuda(x, op)
     torch.cuda.synchronize()
-    assert cuda_probes.toy_elementwise_cuda.launches == before + 1
+    assert _runs(cuda_probes.toy_elementwise_cuda) == before + 1
     assert torch.equal(got, cuda_probes.toy_elementwise_plain(x, op))
 
 
@@ -583,10 +593,10 @@ def test_cuda_toy_elementwise_ragged_and_misaligned(cuda_device, op, n, offset):
     base = torch.randn(n + 1, generator=torch.Generator().manual_seed(n)).to(cuda_device)
     x = base[offset:offset + n]
     assert (x.data_ptr() % 16 == 0) == (offset == 0)
-    before = cuda_probes.toy_elementwise_cuda.launches
+    before = _runs(cuda_probes.toy_elementwise_cuda)
     got = cuda_probes.toy_elementwise_cuda(x, op)
     torch.cuda.synchronize()
-    assert cuda_probes.toy_elementwise_cuda.launches == before + 1
+    assert _runs(cuda_probes.toy_elementwise_cuda) == before + 1
     assert torch.equal(got, cuda_probes.toy_elementwise_plain(x, op))
 
 
@@ -631,11 +641,11 @@ def test_cuda_fused_cip_phase_bit_equal_to_plain(cuda_device, phase, grid, dtype
     """One launch, six output allocations and no scratch, every output equal
     to the plain version's to the bit at float32 and bf16."""
     wrapper, plain, args = _cip_phase_call(phase, *grid, dtype, cuda_device)
-    before = wrapper.launches
+    before = _runs(wrapper)
     allocs = torch.cuda.memory_stats(cuda_device).get("allocation.all.allocated", 0)
     got = wrapper(*args)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert _runs(wrapper) == before + 1
     assert torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"] - allocs == 6
     _assert_bit_equal(got, plain(*args), f"cip_{phase}_phase")
 
@@ -738,10 +748,10 @@ def test_cuda_fused_sor_bit_equal_to_plain(cuda_device, grid, link, n_iters, v_l
         p, pa = p.to(pair_in), pa.to(pair_in)
     args = (p, pa, u, w, code, fluid, cfg.sor_omega, cfg.dt, cfg.dx)
     kw = {"n_iters": n_iters, "v_limit": v_limit, "out_dtype": pair_out}
-    before, allocs = cuda_stencil.sor_iteration_cuda.launches, _allocations(cuda_device)
+    before, allocs = _runs(cuda_stencil.sor_iteration_cuda), _allocations(cuda_device)
     got = cuda_stencil.sor_iteration_cuda(*args, **kw)
     torch.cuda.synchronize()
-    assert cuda_stencil.sor_iteration_cuda.launches == before + 1
+    assert _runs(cuda_stencil.sor_iteration_cuda) == before + 1
     assert _allocations(cuda_device) - allocs == len(got)
     _assert_bit_equal(got, cuda_stencil.sor_iteration_plain(*args, **kw), f"sor{n_iters}_{link}")
 
@@ -754,10 +764,10 @@ def test_cuda_fused_confinement_bit_equal_to_plain(cuda_device, grid, dtype):
     alternate passes through."""
     (*_, v, va), (cfg, _, fluid, _) = _pressure_call(*grid, dtype, cuda_device)
     args = (v, va, fluid, cfg.dt, 5.0, cfg.dx)
-    before, allocs = cuda_phases.confinement_cuda.launches, _allocations(cuda_device)
+    before, allocs = _runs(cuda_phases.confinement_cuda), _allocations(cuda_device)
     got = cuda_phases.confinement_cuda(*args)
     torch.cuda.synchronize()
-    assert cuda_phases.confinement_cuda.launches == before + 1
+    assert _runs(cuda_phases.confinement_cuda) == before + 1
     assert _allocations(cuda_device) - allocs == 1 and got[1] is v
     _assert_bit_equal(got, cuda_phases.confinement_plain(*args), "confinement")
 
@@ -783,10 +793,10 @@ def test_cuda_fused_jacobi_bit_equal_to_plain(cuda_device, grid, link, n_iters, 
     args = (p, pa, u, w, code, not_wall, cfg.dt, cfg.dx)
     kw = {"n_iters": n_iters, "v_limit": v_limit, "out_dtype": pair_out}
     wrapper = cuda_stencil.jacobi_iteration_cuda
-    before, allocs = wrapper.launches, _allocations(cuda_device)
+    before, allocs = _runs(wrapper), _allocations(cuda_device)
     got = wrapper(*args, **kw)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert _runs(wrapper) == before + 1
     assert _allocations(cuda_device) - allocs == len(got)
     _assert_bit_equal(got, cuda_stencil.jacobi_iteration_plain(*args, **kw),
                       f"jacobi{n_iters}_{link}")
@@ -800,7 +810,7 @@ def test_cuda_jacobi_entry_refuses_wrong_operands(cuda_device):
     (p, pa, u, w, _, _), (cfg, code, _, not_wall) = _pressure_call(2, 37, torch.bfloat16,
                                                                     cuda_device)
     wrapper = cuda_stencil.jacobi_iteration_cuda
-    before = wrapper.launches
+    before = _runs(wrapper)
     args = (code, not_wall, cfg.dt, cfg.dx)
     with pytest.raises(ValueError, match="1..4"):
         wrapper(p, pa, u, w, *args, n_iters=5)
@@ -812,7 +822,7 @@ def test_cuda_jacobi_entry_refuses_wrong_operands(cuda_device):
         wrapper(p, pa, u, w.float(), *args)
     with pytest.raises(ValueError, match="shape"):
         wrapper(p, pa, u, w, code[:, :-1].contiguous(), not_wall, cfg.dt, cfg.dx)
-    assert wrapper.launches == before
+    assert _runs(wrapper) == before
 
 
 # The fused MAC dye phase (B3: one launch a call on tiles with a recomputed
@@ -851,10 +861,10 @@ def test_cuda_fused_mac_dye_bit_equal_to_plain(cuda_device, grid, scheme, dtype)
     outputs equal to the plain version's to the bit."""
     args = _mac_dye_call(*grid, dtype, scheme, cuda_device)
     wrapper = cuda_phases.mac_dye_phase_cuda
-    before, allocs = wrapper.launches, _allocations(cuda_device)
+    before, allocs = _runs(wrapper), _allocations(cuda_device)
     got = wrapper(*args)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert _runs(wrapper) == before + 1
     assert _allocations(cuda_device) - allocs == 2
     _assert_bit_equal(got, cuda_phases.mac_dye_phase_plain(*args), f"mac_dye_{scheme}")
 
@@ -881,7 +891,7 @@ def test_cuda_mac_dye_entry_refuses_wrong_operands(cuda_device, dtype):
     layouts, and an unknown scheme; nothing is launched."""
     dye, dye_alt, vel, sc, scheme, dt, dx = _mac_dye_call(2, 37, dtype, "kk", cuda_device)
     wrapper = cuda_phases.mac_dye_phase_cuda
-    before = wrapper.launches
+    before = _runs(wrapper)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         wrapper(dye.half(), dye_alt.half(), vel.half(), sc, scheme, dt, dx)
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
@@ -897,7 +907,7 @@ def test_cuda_mac_dye_entry_refuses_wrong_operands(cuda_device, dtype):
         wrapper(dye, dye_alt.cpu(), vel, sc, scheme, dt, dx)
     with pytest.raises(ValueError, match="scheme"):
         wrapper(dye, dye_alt, vel, sc, "cip", dt, dx)
-    assert wrapper.launches == before
+    assert _runs(wrapper) == before
 
 
 # The fused MAC velocity phase (B2: one launch a call; the pre-BC velocity
@@ -933,10 +943,10 @@ def test_cuda_fused_mac_velocity_bit_equal_to_plain(cuda_device, grid, scheme, d
     outputs equal to the plain version's to the bit."""
     args = _mac_velocity_call(*grid, dtype, scheme, cuda_device)
     wrapper = cuda_phases.mac_velocity_phase_cuda
-    before, allocs = wrapper.launches, _allocations(cuda_device)
+    before, allocs = _runs(wrapper), _allocations(cuda_device)
     got = wrapper(*args)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert _runs(wrapper) == before + 1
     assert _allocations(cuda_device) - allocs == 2
     _assert_bit_equal(got, cuda_phases.mac_velocity_phase_plain(*args), f"mac_velocity_{scheme}")
 
@@ -949,7 +959,7 @@ def test_cuda_mac_velocity_entry_refuses_wrong_operands(cuda_device, dtype):
     devices or layouts, and an unknown scheme; nothing is launched."""
     v, p, v_alt, sc, scheme, re, dt, dx = _mac_velocity_call(2, 37, dtype, "kk", cuda_device)
     wrapper = cuda_phases.mac_velocity_phase_cuda
-    before = wrapper.launches
+    before = _runs(wrapper)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         wrapper(v.half(), p.half(), v_alt.half(), sc, scheme, re, dt, dx)
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
@@ -965,7 +975,7 @@ def test_cuda_mac_velocity_entry_refuses_wrong_operands(cuda_device, dtype):
         wrapper(v, p.cpu(), v_alt, sc, scheme, re, dt, dx)
     with pytest.raises(ValueError, match="scheme"):
         wrapper(v, p, v_alt, sc, "cip", re, dt, dx)
-    assert wrapper.launches == before
+    assert _runs(wrapper) == before
 
 
 @pytest.mark.cuda
@@ -978,17 +988,17 @@ def test_cuda_row_copy_bit_equal_at_each_window(cuda_device, mode, t, dtype):
     which moves rows [8, 24) of its window, refuses a window of fewer than
     24 rows, where its plain slices do not fit either."""
     x = torch.randn((t + 16, 128), generator=torch.Generator().manual_seed(t)).to(dtype)
-    before = cuda_dtype_probes.row_copy_cuda.launches
+    before = _runs(cuda_dtype_probes.row_copy_cuda)
     if mode == "head" and t < 8:
         with pytest.raises(ValueError, match="window"):
             cuda_dtype_probes.row_copy_cuda(x.to(cuda_device), mode, t)
         with pytest.raises(RuntimeError):
             cuda_dtype_probes.row_copy_plain(x, mode, t)
-        assert cuda_dtype_probes.row_copy_cuda.launches == before
+        assert _runs(cuda_dtype_probes.row_copy_cuda) == before
         return
     got = cuda_dtype_probes.row_copy_cuda(x.to(cuda_device), mode, t)
     torch.cuda.synchronize()
-    assert cuda_dtype_probes.row_copy_cuda.launches == before + 1
+    assert _runs(cuda_dtype_probes.row_copy_cuda) == before + 1
     assert torch.equal(got.cpu(), cuda_dtype_probes.row_copy_plain(x, mode, t))
 
 
@@ -1050,11 +1060,76 @@ def test_cuda_cli_default_device_launches_the_kernels(cuda_device, tmp_path, cap
     main path's four kernels once a step."""
     from fluid2d_tpu_torch import cli
 
-    before = [w.launches for w in FRONT_WRAPPERS]
+    before = [_runs(w) for w in FRONT_WRAPPERS]
     cli.main(["-bc", "2", "-res", "400", "--steps", "5", "--log-every", "5", "--dump-fields",
               "--output", str(tmp_path)])
-    assert [w.launches - n for w, n in zip(FRONT_WRAPPERS, before)] == [5, 5, 5, 5]
+    assert [_runs(w) - n for w, n in zip(FRONT_WRAPPERS, before)] == [5, 5, 5, 5]
     out = capsys.readouterr().out
     assert "step 5:" in out and "div_rms=" in out and "NaN" not in out
     with np.load(tmp_path / "step_000005.npz") as data:
         assert data["v"].shape == (800, 400, 2) and np.isfinite(data["v"]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counter_counts_each_enqueued_entry_point(cuda_device):
+    """``launch`` adds one to its entry point's count a call, and nothing
+    elsewhere; a call the wrapper refuses (a float64 operand) counts
+    nothing; ``add_launches`` adds counts × times."""
+    x = torch.rand(4096, device=cuda_device)
+    before = dict(launches)
+    cuda_probes.copy_add1_cuda(x)
+    cuda_probes.copy_add1_cuda(x)
+    torch.cuda.synchronize()
+    want = {**before, "f2d_copy_add1": before.get("f2d_copy_add1", 0) + 2}
+    assert dict(launches) == want
+    with pytest.raises(TypeError):
+        cuda_probes.copy_add1_cuda(x.double())
+    assert dict(launches) == want
+    trace.add_launches({"f2d_copy_add1": 2, "f2d_sor_iteration": 1}, times=3)
+    assert launches["f2d_copy_add1"] == want["f2d_copy_add1"] + 6
+    assert launches["f2d_sor_iteration"] == want.get("f2d_sor_iteration", 0) + 3
+    trace.add_launches({"f2d_copy_add1": 2, "f2d_sor_iteration": 1}, times=-3)
+    assert {k: n for k, n in launches.items() if n} == {k: n for k, n in want.items() if n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["cip", "upwind"])
+def test_cuda_step_launches_once_a_phase_inside_its_spans(cuda_device, scheme):
+    """A kernel-path step under the profiler with spans on: each phase span
+    holds one ``f2d.launch``, each step four phases and four launches, and
+    the counter moves by four a step."""
+    from fluid2d_tpu_torch import FluidSimulator
+
+    sim = FluidSimulator.create(2, RES, scheme=scheme)
+    sim.step(2)
+    torch.cuda.synchronize()
+    before = sum(launches.values())
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof, trace.enabled(True):
+        sim.step(3)
+    torch.cuda.synchronize()
+    assert sum(launches.values()) == before + 12
+    names = [e.name for e in prof.events() if e.name.startswith("f2d.")]
+    assert names.count("f2d.step") == 3 and names.count("f2d.launch") == 12
+    assert sum(n.startswith("f2d.phase.") for n in names) == 12
+
+
+@pytest.mark.cuda
+def test_cuda_to_image_counts_the_frames_bytes(cuda_device):
+    """``to_image`` of a CUDA frame adds X·Y·3·4 bytes to ``d2h_bytes``; the
+    field getters and the field dump add what they copy."""
+    from fluid2d_tpu_torch import FluidSimulator
+    from fluid2d_tpu_torch.utils.viz import to_image
+
+    sim = FluidSimulator.create(2, RES)
+    x_rows, y_cols = sim.scene.shape
+    n = trace.d2h_bytes
+    img = to_image(sim.render(0))
+    assert img.shape == (y_cols, x_rows, 3)
+    assert trace.d2h_bytes == n + x_rows * y_cols * 3 * 4
+    n = trace.d2h_bytes
+    sim.get_dye_field()
+    assert trace.d2h_bytes == n + x_rows * y_cols * 3 * 4
+    n = trace.d2h_bytes
+    sim.field_to_numpy()
+    assert trace.d2h_bytes == n + x_rows * y_cols * (2 + 1 + 3) * 4

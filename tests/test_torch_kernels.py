@@ -25,6 +25,7 @@ from fluid2d_tpu.ops.pallas_stencil import sor_iteration_pallas
 from fluid2d_tpu.scenes.compile import get_scene as jax_get_scene
 from fluid2d_tpu_torch.convert import scene_from_numpy
 from fluid2d_tpu_torch.ops import cuda_phases, cuda_stencil
+from fluid2d_tpu_torch.utils.trace import launches
 
 torch.set_num_threads(1)
 
@@ -167,17 +168,15 @@ def _wrapper_calls():
     ]
 
 
-def test_wrappers_on_cpu_take_the_plain_version_and_count_nothing(monkeypatch):
+def test_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
     calls = _wrapper_calls()
-    for wrapper, _, _, _ in calls:
-        monkeypatch.setattr(wrapper, "launches", 0)
     for wrapper, plain, args, kwargs in calls:
+        before = dict(launches)
         got, ref = wrapper(*args, **kwargs), plain(*args, **kwargs)
         assert len(got) == len(ref)
         for g, r in zip(got, ref):
             assert torch.equal(g, r), wrapper.__name__
-    for wrapper, _, _, _ in calls:
-        assert wrapper.launches == 0, wrapper.__name__
+        assert dict(launches) == before, wrapper.__name__
 
 
 def test_wrapper_refuses_a_non_cpu_non_cuda_device():

@@ -123,7 +123,12 @@ Phases, each printed as JSON lines:
              channels; the row window bit-equal to 2·a and to its plain
              version; the three toys bit-equal at the three shapes and on a
              view at offset 1 of the largest (the kernel's scalar path), with
-             the el-op counter's counts of their plain versions.
+             the el-op counter's counts of their plain versions. Last the
+             view's 8-bit image (V1) on random frames with NaN and ±inf at
+             3200×1600 and 800×400, bit-equal to the NumPy path of
+             utils/viz.py:to_image and to its plain version, each timed
+             beside its bound (15 bytes a cell), its plain version and the
+             PyTorch clamp, multiply, add and cast of the same frame.
 10. front end — the CLI in this process (cli.main, the counters read around
              each run), at the main path's full width (scene 2, res=1600,
              CIP, SOR ω=1.3 ×2, ε=5, dye) at float32 and at bf16: run A, 21
@@ -132,10 +137,12 @@ Phases, each printed as JSON lines:
              step_000030.npz) and a checkpoint; run C, 30 straight steps of
              FluidSimulator.create. B's state (read back from its
              checkpoint) bit-equal to C's on every leaf; A and B each launch
-             A1–A4 once a step (RUNS_PER_STEP["cip"]); two frames of
+             A1–A4 once a step (RUNS_PER_STEP["cip"]) and A the image
+             kernel V1 once a frame; two frames of
              3200×1600, not uniform; the log lines carry div_rms and no NaN;
              C's four views rendered on the card within VIEW_TOL of the same
-             state rendered on the CPU. The CLI timed with frames and logs
+             state rendered on the CPU, and their 8-bit images from the card
+             (V1) bit-equal to the NumPy path's. The CLI timed with frames and logs
              off (HEADLINE_STEPS steps) beside phase 6's headline, at least
              CLI_RATE_FLOOR of it. Then solver_residual_bench (SOLVER_ARGS;
              A1 and B1 with A2–A4, each kernel's runs counted from the
@@ -179,6 +186,7 @@ from fluid2d_tpu_torch.ops import (
     cuda_phases,
     cuda_probes,
     cuda_stencil,
+    cuda_view,
     launch,
 )
 from fluid2d_tpu_torch.convert import state_from_numpy, state_to_numpy
@@ -199,7 +207,7 @@ from fluid2d_tpu_torch.scripts.phase_bench import median_ms
 from fluid2d_tpu_torch.utils import io as fio
 from fluid2d_tpu_torch.utils import profiling
 from fluid2d_tpu_torch.utils.trace import launches as launch_counter
-from fluid2d_tpu_torch.utils.viz import render_rgb
+from fluid2d_tpu_torch.utils.viz import render_rgb, to_image
 
 RES = 1600
 SCENE = 2
@@ -269,11 +277,14 @@ KERNELS = (
      "fluid2d_tpu_torch/csrc/probes.cu", "scripts/dma_rowwin_1600_check.py:57"),
     ("toy_elementwise", ("f2d_toy_elementwise",),
      "fluid2d_tpu_torch/csrc/probes.cu", "tests/test_profiling.py:134"),
+    ("to_image", ("f2d_to_image",),
+     "fluid2d_tpu_torch/csrc/view.cu", "none: NumPy on the host, fluid2d_tpu/utils/viz.py:139"),
 )
 PROBES = ("copy_add1", "mix_twin", "mix_twin_bf16", "fma_rate", "dtype_rate", "row_copy",
           "fma_sweep", "geometry_twin", "row_window", "toy_elementwise")
 SWEEP_HEAD = {"chains": 8, "depth": 1024, "threads": 256}  # the fma_sweep row's timed case
 TOY_SHAPES = ((32, 128), (8, 128), (2 * RES, RES))
+VIEW_SHAPES = ((2 * RES, RES), (800, 400))  # V1's timed frames: the benchmark's two grids
 # The port's kernels as torch.profiler names them (phase 4, profile).
 PORT_KERNELS = ("cip_velocity_fused_kernel", "cip_dye_fused_kernel",
                 "confinement_fused_kernel", "sor_fused_kernel", "jacobi_fused_kernel",
@@ -528,9 +539,13 @@ def read_counts() -> dict[str, int]:
     return {name: sum(launch_counter[e] for e in entries) for name, entries, *_ in KERNELS}
 
 
-def check_counts(counts: dict[str, int], path: str, steps: int, what: str) -> None:
+def check_counts(counts: dict[str, int], path: str, steps: int, what: str,
+                 frames: int = 0) -> None:
+    """The kernel runs of `steps` steps of `path`, and one image kernel run
+    a frame written."""
     per_step = RUNS_PER_STEP[path]
     want = {name: per_step.get(name, 0) * steps for name, *_ in KERNELS}
+    want["to_image"] = frames
     if counts != want:
         raise AssertionError(f"{what}: kernel runs {counts}, expected {want}")
 
@@ -996,6 +1011,7 @@ def run_last_probes(dev, table) -> dict[str, int]:
     check_geometry_twin(dev, table)
     check_row_window(dev, table)
     check_toys(toys, table)
+    check_view(dev, table)
     return counts
 
 
@@ -1312,7 +1328,9 @@ def _check_frames(out_dir: Path, what: str) -> int:
 
 def _check_views(sim, what: str) -> float:
     """The four views rendered on the card against the same state and scene
-    rendered on the CPU; returns the largest difference."""
+    rendered on the CPU, and each view's 8-bit image from the card (V1)
+    bit-equal to the NumPy path's image of the same frame; returns the
+    largest difference of the views."""
     cpu_state = state_from_numpy(state_to_numpy(sim.state), "cpu", sim.cfg.dtype)
     cpu_scene = Scene(*(t.cpu() for t in sim.scene))
     worst = 0.0
@@ -1324,6 +1342,8 @@ def _check_views(sim, what: str) -> float:
         err = float((got.cpu() - ref).abs().max())
         if not err <= VIEW_TOL or not bool(torch.isfinite(ref).all()):
             raise AssertionError(f"{what}: view {vis} differs from the CPU's by {err}")
+        if not np.array_equal(to_image(got), to_image(got.cpu().numpy())):
+            raise AssertionError(f"{what}: view {vis}'s image from the card differs from NumPy's")
         worst = max(worst, err)
     return worst
 
@@ -1342,7 +1362,7 @@ def _resume_legs(tmp: Path, dtype: str, headline: float) -> dict[str, int]:
         [*flags, "--steps", str(CLI_STEPS_A), "--frame-every", str(CLI_EVERY), "--log-every",
          str(CLI_EVERY), "--dump-fields", "--checkpoint", str(ck_a), "--output",
          str(tmp / "A")], f"cli[{dtype}] A")
-    check_counts(counts_a, path, CLI_STEPS_A, f"cli[{dtype}] A")
+    check_counts(counts_a, path, CLI_STEPS_A, f"cli[{dtype}] A", CLI_STEPS_A // CLI_EVERY)
     logs = [line for line in out_a.splitlines() if line.startswith("step ")]
     if [line.split(":")[0] for line in logs] != ["step 10", "step 20"] or not all(
             "div_rms=" in line for line in logs):
@@ -1389,6 +1409,39 @@ def _resume_legs(tmp: Path, dtype: str, headline: float) -> dict[str, int]:
           "steps_per_s": rate, "headline_steps_per_s": headline, "ratio": rate / headline,
           "launches": counts_t})
     return {name: counts_a[name] + counts_b[name] + counts_t[name] for name in counts_a}
+
+
+def check_view(dev, table) -> None:
+    """V1 on random frames in [-0.2, 1.2] with NaN and ±inf cells at
+    VIEW_SHAPES: bit-equal to the NumPy path of ``to_image`` and to the plain
+    version, timed beside its bound (the frame read and the image written
+    once), the plain version and the PyTorch clamp, multiply, add and cast
+    to uint8 of the same frame (no flip); the first shape heads the row."""
+    gen = torch.Generator(device=dev).manual_seed(1515)
+    for k, shape in enumerate(VIEW_SHAPES):
+        rgb = torch.rand((*shape, 3), generator=gen, device=dev) * 1.4 - 0.2
+        rgb.view(-1)[::97] = float("nan")
+        rgb.view(-1)[5::211] = float("inf")
+        rgb.view(-1)[7::223] = -float("inf")
+        got = cuda_view.to_image_cuda(rgb)
+        torch.cuda.synchronize()
+        with np.errstate(invalid="ignore"):  # NumPy's cast of NaN warns (and gives 0)
+            ref = to_image(rgb.cpu().numpy())
+        if not (np.array_equal(got.cpu().numpy(), ref)
+                and torch.equal(got, cuda_view.to_image_plain(rgb))):
+            raise AssertionError(f"to_image[{shape}]: differs from the NumPy path")
+        ms = median_ms(lambda rgb=rgb: cuda_view.to_image_cuda(rgb))
+        plain_ms = median_ms(lambda rgb=rgb: cuda_view.to_image_plain(rgb))
+        library_ms = median_ms(lambda rgb=rgb: (rgb.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8))
+        b = bound(rgb.numel() * (4 + 1), 0)
+        name = f"_{shape[0]}x{shape[1]}"
+        _row(table, "to_image", "" if k == 0 else name, 0.0, ms, plain_ms, *b,
+             library_ms=library_ms)
+        table["to_image"] |= {f"bound_ms{name}": b[0], f"plain_ms{name}": plain_ms,
+                              f"library_ms{name}": library_ms}
+        emit({"phase": "last_probe_check", "name": f"to_image{name}", "bit_equal": True,
+              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b[0],
+              "share_of_bound": b[0] / ms})
 
 
 def run_front_end(headlines: dict[str, float]) -> dict[str, dict[str, int]]:

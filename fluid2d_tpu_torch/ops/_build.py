@@ -87,6 +87,8 @@ _SIGNATURES = {
     # x, out, cols, t, mode, stream
     "f2d_row_copy": [_P, _P, _I, _I, _I, _P],
     "f2d_row_copy_bf16": [_P, _P, _I, _I, _I, _P],
+    # rgb (X, Y, 3) float32, image (Y, X, 3) uint8, X, Y, stream
+    "f2d_to_image": [_P, _P, _I, _I, _P],
 }
 
 

@@ -19,9 +19,14 @@ on the host thread (the program is single-threaded). Every span is named
                             ``sor``, ``jacobi``, ``cip_advect``
 ``f2d.launch``              ``ops/launch.py:launch``: library lookup, device
                             guard, stream, the C call, the return code's check
+``f2d.to_image.convert``    ``utils/viz.py:to_image``: clip, flip, scale, cast to
+                            uint8; for a CUDA frame the enqueue of the kernel V1
+                            (``ops/cuda_view.py``), before ``d2h``; for a host
+                            frame the NumPy passes, after it
 ``f2d.to_image.d2h``        ``utils/viz.py:to_image``: the wait for the queue and
-                            the device→host copy
-``f2d.to_image.convert``    ``utils/viz.py:to_image``: clip, scale, cast to uint8
+                            the device→host copy, of the X·Y·3-byte image for a
+                            CUDA frame, into a fresh array; for a host frame
+                            the frame taken as an array
 ==========================  ======================================================
 
 Counters, counted whether spans are on or off:
@@ -30,7 +35,8 @@ Counters, counted whether spans are on or off:
   point (``ops/launch.py:launch`` adds one a call; :func:`add_launches`
   adds a replayed graph's);
 - ``d2h_bytes``: bytes the front end copied from the card to the host
-  (:func:`to_host`).
+  (:func:`to_host`): X·Y·3 for ``to_image`` of a CUDA frame, the uint8
+  image, not the float32 frame.
 """
 
 from __future__ import annotations

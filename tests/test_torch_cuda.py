@@ -53,6 +53,13 @@ which one round short exceeds; the geometry twin (C5e/f) within
 persistent block) and the el-op toys (C6, with ragged tails and a
 misaligned view) bit-equal; the row copies (C5b) bit-equal at several t,
 the tail copy spread over one block a row.
+
+The view's 8-bit image (V1, one launch a ``to_image`` of a CUDA frame)
+bit-equal to the NumPy path of ``utils/viz.py:to_image`` on the four views
+of a stepped state at 3200×1600 and 800×400, on random frames with NaN and
+±inf at those grids and at ragged shapes, on the edge values of
+``tests/test_torch_view.py`` and on a frame that is not 16-byte aligned;
+each returned array the caller's, left as it was by later calls.
 """
 
 import numpy as np
@@ -1116,8 +1123,9 @@ def test_cuda_step_launches_once_a_phase_inside_its_spans(cuda_device, scheme):
 
 @pytest.mark.cuda
 def test_cuda_to_image_counts_the_frames_bytes(cuda_device):
-    """``to_image`` of a CUDA frame adds X·Y·3·4 bytes to ``d2h_bytes``; the
-    field getters and the field dump add what they copy."""
+    """``to_image`` of a CUDA frame adds X·Y·3 bytes to ``d2h_bytes``, the
+    uint8 image it copies; the field getters and the field dump add what
+    they copy."""
     from fluid2d_tpu_torch import FluidSimulator
     from fluid2d_tpu_torch.utils.viz import to_image
 
@@ -1126,10 +1134,96 @@ def test_cuda_to_image_counts_the_frames_bytes(cuda_device):
     n = trace.d2h_bytes
     img = to_image(sim.render(0))
     assert img.shape == (y_cols, x_rows, 3)
-    assert trace.d2h_bytes == n + x_rows * y_cols * 3 * 4
+    assert trace.d2h_bytes == n + x_rows * y_cols * 3
     n = trace.d2h_bytes
     sim.get_dye_field()
     assert trace.d2h_bytes == n + x_rows * y_cols * 3 * 4
     n = trace.d2h_bytes
     sim.field_to_numpy()
     assert trace.d2h_bytes == n + x_rows * y_cols * (2 + 1 + 3) * 4
+
+
+# --- V1: the view's 8-bit image ---------------------------------------------------
+
+
+def _numpy_image(rgb: torch.Tensor) -> np.ndarray:
+    """The NumPy path of ``to_image`` on the frame's host copy."""
+    from fluid2d_tpu_torch.utils.viz import to_image
+
+    with np.errstate(invalid="ignore"):  # NumPy's cast of NaN warns (and gives 0)
+        return to_image(rgb.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("bc", "res", "scheme"), [(2, 1600, "cip"), (1, 400, "upwind")],
+                         ids=["3200x1600", "800x400"])
+def test_cuda_to_image_bit_equal_on_the_four_views(cuda_device, bc, res, scheme):
+    """The four views of a stepped state at the benchmark's two grids: the
+    card's image (V1, one launch a call) bit-equal to the NumPy path's."""
+    from fluid2d_tpu_torch import FluidSimulator
+    from fluid2d_tpu_torch.utils.viz import to_image
+
+    sim = FluidSimulator.create(bc, res, scheme=scheme)
+    sim.step(6)
+    for vis in range(4):
+        rgb = sim.render(vis)
+        n = launches["f2d_to_image"]
+        got = to_image(rgb)
+        assert launches["f2d_to_image"] == n + 1
+        assert got.dtype == np.uint8 and got.shape == (rgb.shape[1], rgb.shape[0], 3)
+        np.testing.assert_array_equal(got, _numpy_image(rgb), err_msg=f"view {vis}")
+
+
+def _view_frames(dev):
+    """(name, frame) on the card: random frames in [-0.2, 1.2] at the
+    benchmark's grids and ragged shapes, NaN and ±inf in some cells; the
+    edge values; a frame at offset 1 of a larger one (not 16-byte aligned:
+    the kernel's masked path on whole tiles)."""
+    from test_torch_view import SHAPES, edge_frame
+
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    frames = []
+    for shape in [(3200, 1600), (800, 400), *SHAPES]:
+        f = torch.rand((*shape, 3), generator=gen) * 1.4 - 0.2
+        f.view(-1)[::97] = float("nan")
+        f.view(-1)[5::211] = float("inf")
+        f.view(-1)[7::223] = -float("inf")
+        frames.append((f"{shape[0]}x{shape[1]}", f.to(dev)))
+    frames.append(("edge", torch.from_numpy(edge_frame()).to(dev)))
+    big = torch.rand((128 * 128 * 3 + 1,), generator=gen).to(dev) * 1.4 - 0.2
+    frames.append(("128x128_offset", big[1:].view(128, 128, 3)))
+    return frames
+
+
+@pytest.mark.cuda
+def test_cuda_to_image_kernel_bit_equal_to_numpy(cuda_device):
+    from fluid2d_tpu_torch.ops.cuda_view import to_image_cuda, to_image_plain
+
+    for name, frame in _view_frames(cuda_device):
+        n = launches["f2d_to_image"]
+        got = to_image_cuda(frame)
+        assert launches["f2d_to_image"] == n + 1
+        assert got.device == cuda_device and got.dtype == torch.uint8 and got.is_contiguous()
+        ref = _numpy_image(frame)
+        np.testing.assert_array_equal(got.cpu().numpy(), ref, err_msg=name)
+        np.testing.assert_array_equal(to_image_plain(frame.cpu()).numpy(), ref, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_to_image_arrays_are_the_callers(cuda_device):
+    """A later call, of the same shape or another, leaves every array
+    returned earlier as it was: each is a fresh array of the caller's."""
+    from fluid2d_tpu_torch.utils.viz import to_image
+
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    frames = [torch.rand((96, 64, 3), generator=gen).to(cuda_device) for _ in range(3)]
+    first = to_image(frames[0])
+    kept = first.copy()
+    second = to_image(frames[1])
+    to_image(torch.rand((40, 24, 3), generator=gen).to(cuda_device))
+    third = to_image(frames[2])
+    np.testing.assert_array_equal(first, kept)
+    np.testing.assert_array_equal(second, _numpy_image(frames[1]))
+    np.testing.assert_array_equal(third, _numpy_image(frames[2]))
+    assert not np.shares_memory(first, second) and not np.shares_memory(second, third)
+    assert first.flags.writeable

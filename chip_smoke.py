@@ -206,7 +206,7 @@ from fluid2d_tpu_torch.scripts import (
 from fluid2d_tpu_torch.scripts.phase_bench import median_ms
 from fluid2d_tpu_torch.utils import io as fio
 from fluid2d_tpu_torch.utils import profiling
-from fluid2d_tpu_torch.utils.trace import launches as launch_counter
+from fluid2d_tpu_torch.utils.trace import entry_launches, launches as launch_counter
 from fluid2d_tpu_torch.utils.viz import render_rgb, to_image
 
 RES = 1600
@@ -534,9 +534,10 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict[str, int]:
-    """Kernel runs by KERNELS row since the last reset (the launch counter,
-    ``fluid2d_tpu_torch/utils/trace.py``)."""
-    return {name: sum(launch_counter[e] for e in entries) for name, entries, *_ in KERNELS}
+    """Kernel runs by KERNELS row since the last reset (the launch counter
+    by C entry point, ``fluid2d_tpu_torch/utils/trace.py``)."""
+    runs = entry_launches()
+    return {name: sum(runs[e] for e in entries) for name, entries, *_ in KERNELS}
 
 
 def check_counts(counts: dict[str, int], path: str, steps: int, what: str,

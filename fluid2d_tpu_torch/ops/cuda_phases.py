@@ -91,7 +91,9 @@ flag.
 Each wrapper takes CPU tensors to its plain version and launches its
 kernel on CUDA tensors; there is no other path. Each runs inside the span
 ``f2d.phase.<name>`` (``utils/trace.py``), and ``ops/launch.py:launch``
-counts its kernel runs.
+counts its kernel runs. A MAC phase called with KK runs inside
+``f2d.phase.<name>.kk`` and is counted under ``<entry>.kk``, so the KK
+forms of B2 and B3 read apart from upwind's.
 """
 
 from __future__ import annotations
@@ -305,6 +307,9 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
 # --- MAC phases -----------------------------------------------------------------
 
 _ADVECT = {"upwind": advect_upwind, "kk": advect_kk}
+# The suffix of a scheme's span and launch-counter names: KK's forms are
+# counted apart, upwind's keep the plain names.
+_FORM = {"kk": ".kk"}
 
 
 def _advect_fn(scheme: str):
@@ -341,7 +346,8 @@ def mac_velocity_phase_plain(v, p, v_alt, scene, scheme: str, re: float, dt: flo
 def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: float, dx: float):
     """Whole MAC velocity phase: velocity BC, then the upwind or KK
     momentum update at fluid cells. Returns ``(v_cur, vc)``."""
-    with span("f2d.phase.mac_velocity"):
+    form = _FORM.get(scheme, "")
+    with span("f2d.phase.mac_velocity" + form):
         _advect_fn(scheme)
         if _launch.TRAFFIC_LOG is not None:
             log_traffic(f"mac_velocity_phase_{scheme}",
@@ -363,8 +369,8 @@ def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: floa
         ]
         v_out = torch.empty_like(v)
         v_bc = torch.empty_like(v)
-        launch("f2d_mac_velocity_phase", dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(), x_rows,
-               y_cols, int(scheme == "kk"), bf16, dt, recip32(dx), _inv_adv(scheme, dx),
+        launch("f2d_mac_velocity_phase" + form, dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(),
+               x_rows, y_cols, int(scheme == "kk"), bf16, dt, recip32(dx), _inv_adv(scheme, dx),
                recip32(dx**2), recip32(re))
         return v_out, v_bc
 
@@ -387,7 +393,8 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
     """Whole MAC dye phase: inflow BC, upwind or KK advection by `vel`
     (the limited velocity) at fluid cells, [0, 1] clamp. Returns
     ``(dye_cur, dc)``."""
-    with span("f2d.phase.mac_dye"):
+    form = _FORM.get(scheme, "")
+    with span("f2d.phase.mac_dye" + form):
         _advect_fn(scheme)
         if _launch.TRAFFIC_LOG is not None:
             log_traffic(f"mac_dye_phase_{scheme}",
@@ -410,6 +417,6 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
         ]
         d_out = torch.empty_like(dye)
         d_bc = torch.empty_like(dye)
-        launch("f2d_mac_dye_phase", dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), x_rows, y_cols,
-               chans, int(scheme == "kk"), bf16, dt, _inv_adv(scheme, dx))
+        launch("f2d_mac_dye_phase" + form, dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), x_rows,
+               y_cols, chans, int(scheme == "kk"), bf16, dt, _inv_adv(scheme, dx))
         return d_out, d_bc

@@ -8,8 +8,8 @@ A field is stored as float32 or bfloat16 (the transport dtype,
 ``f2d_<kernel>`` and ``f2d_<kernel>_bf16`` (:func:`entry`).
 The kernel library is imported and built only when a CUDA tensor is
 launched on, never when a module is imported. :func:`launch` counts each
-call in ``utils/trace.py:launches`` under its entry point and runs inside
-the span ``f2d.launch``.
+call in ``utils/trace.py:launches`` under its entry point, or a form of it
+(``<entry>.<form>``), and runs inside the span ``f2d.launch``.
 
 The byte ledger: while ``TRAFFIC_LOG`` is a list, every phase wrapper
 appends ``(kernel name with variant, bytes)`` on entry, before it routes by
@@ -122,13 +122,16 @@ def require_no_alias(outs, ins, wrapper: str) -> None:
 def launch(entry: str, device: torch.device, *args) -> None:
     """Call C entry point `entry` of the kernel library on `device`'s
     current stream (appended as the last argument); raise on a CUDA
-    error. Counts one launch of `entry` once it is enqueued."""
+    error. Counts one launch of `entry` once it is enqueued. An `entry`
+    with a suffix after a dot (``f2d_mac_velocity_phase.kk``) names a form
+    of the C entry point before the dot, which it calls, and is counted
+    under its whole name."""
     with span("f2d.launch"):
         from fluid2d_tpu_torch.ops import _build
 
         lib = _build.load_library()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+            rc = getattr(lib, entry.partition(".")[0])(*args, ctypes.c_void_p(stream))
         _build.check(lib, rc, entry)
         launches[entry] += 1

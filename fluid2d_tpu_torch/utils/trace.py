@@ -16,7 +16,9 @@ on the host thread (the program is single-threaded). Every span is named
 ``f2d.phase.<name>``        a kernel wrapper, entry to return, before it routes
                             by device: ``cip_velocity``, ``cip_dye``,
                             ``mac_velocity``, ``mac_dye``, ``confinement``,
-                            ``sor``, ``jacobi``, ``cip_advect``
+                            ``sor``, ``jacobi``, ``cip_advect``; a MAC phase
+                            called with KK: ``mac_velocity.kk``,
+                            ``mac_dye.kk``
 ``f2d.launch``              ``ops/launch.py:launch``: library lookup, device
                             guard, stream, the C call, the return code's check
 ``f2d.to_image.convert``    ``utils/viz.py:to_image``: clip, flip, scale, cast to
@@ -33,7 +35,10 @@ Counters, counted whether spans are on or off:
 
 - ``launches[entry]``: kernel-library entry points enqueued, by C entry
   point (``ops/launch.py:launch`` adds one a call; :func:`add_launches`
-  adds a replayed graph's);
+  adds a replayed graph's); a form of an entry point counted apart has
+  its own key, ``<entry>.<form>`` (the MAC phases with KK:
+  ``f2d_mac_velocity_phase.kk``, ``f2d_mac_dye_phase.kk``);
+  :func:`entry_launches` gives the totals by C entry point;
 - ``d2h_bytes``: bytes the front end copied from the card to the host
   (:func:`to_host`): X·Y·3 for ``to_image`` of a CUDA frame, the uint8
   image, not the float32 frame.
@@ -47,7 +52,7 @@ from collections.abc import Mapping
 
 import torch
 
-__all__ = ["span", "enabled", "launches", "add_launches", "to_host"]
+__all__ = ["span", "enabled", "launches", "entry_launches", "add_launches", "to_host"]
 
 _on = False
 _OFF = contextlib.nullcontext()
@@ -79,6 +84,15 @@ class enabled:
     def __exit__(self, *exc) -> None:
         global _on
         _on = self._was
+
+
+def entry_launches() -> collections.Counter[str]:
+    """``launches`` by C entry point: a form counted apart
+    (``<entry>.<form>``) adds to its entry point's count."""
+    out: collections.Counter[str] = collections.Counter()
+    for key, n in launches.items():
+        out[key.partition(".")[0]] += n
+    return out
 
 
 def add_launches(counts: Mapping[str, int], times: int = 1) -> None:

@@ -42,6 +42,11 @@ per-dtype ones refused. The fused MAC velocity phase (B2, one launch: the
 pre-BC velocity on the tile + 3 or + 4, the BC'd on + 1 or + 2) the same,
 on an open scene with every velocity BC code on its edge.
 
+The benchmark's kk800 settings (scene 2 at 1600×800, KK, dt 0.0125/800,
+confinement, dye): one ``step(100)`` through the kernels bit-equal to the
+eager path. KK's MAC phases open their ``.kk`` spans and move their
+``.kk`` launch-counter keys.
+
 The standalone CIP advection (C1, one launch on 32×32 tiles of every
 channel) bit-equal at float32 and bf16 in both forms, on scene 2 and on
 open scenes with fluid to every edge, into fresh outputs and `out=`; the
@@ -86,11 +91,13 @@ def cuda_device():
 
 def _runs(wrapper) -> int:
     """Kernel runs so far of the C entry points `wrapper` launches (the
-    launch counter, ``utils/trace.py``): ``f2d_<name>``, and its ``_bf16``
-    twin for the wrappers that take one entry point per storage type."""
+    launch counter, ``utils/trace.py``): ``f2d_<name>`` and its forms
+    counted apart (``f2d_<name>.kk``), and its ``_bf16`` twin for the
+    wrappers that take one entry point per storage type."""
     base = "f2d_" + wrapper.__name__.removesuffix("_cuda")
     twins = (cuda_dtype_probes.dtype_rate_cuda, cuda_dtype_probes.row_copy_cuda)
-    return launches[base] + (launches[base + "_bf16"] if wrapper in twins else 0)
+    runs = trace.entry_launches()
+    return runs[base] + (runs[base + "_bf16"] if wrapper in twins else 0)
 
 
 def _assert_close(got, ref, what, tol):
@@ -370,6 +377,44 @@ def test_cuda_run_matches_eager_run(cuda_device, config):
     got = [leaf for leaf in outs["cuda"] if leaf is not None]
     ref = [leaf for leaf in outs["eager"] if leaf is not None]
     _assert_close([g.float() for g in got], [r.float() for r in ref], "state", 2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_kk800_step100_bit_equal_to_eager_run(cuda_device):
+    """The benchmark's kk800 settings at their own size (scene 2 at
+    1600×800, KK, Re 1000, dt 0.0125/800, confinement 5, dye, SOR ω 1.3
+    ×2, limit 10): one ``step(100)`` through the kernels bit-equal to 100
+    eager steps, from a seeded smooth state, every leaf finite."""
+    from fluid2d_tpu_torch import FluidSimulator
+
+    res = 800
+    kw = {"scheme": "kk", "re": 1000.0, "dt": 0.0125 / res, "vor_eps": 5.0}
+    sc = get_scene(2, res, cuda_device)
+    x_rows, y_cols = sc.shape
+    fluid = (sc.mask == 0).float()
+    gx = torch.linspace(0, 2 * np.pi, x_rows, device=cuda_device)[:, None]
+    gy = torch.linspace(0, 2 * np.pi, y_cols, device=cuda_device)[None, :]
+    outs = {}
+    for mode in ("cuda", "eager"):
+        cfg = SimConfig.create(resolution=res, kernels=mode, **kw)
+        st = init_state(sc, cfg, cuda_device)
+        st = st._replace(
+            v=torch.stack([0.5 * torch.sin(3 * gx) * torch.cos(2 * gy) * fluid,
+                           0.4 * torch.cos(2 * gx) * torch.sin(gy) * fluid]),
+            p=0.05 * torch.sin(gx + gy) * fluid,
+            dye=torch.stack([0.5 + 0.4 * torch.sin(k * gx) * torch.cos(gy) * fluid
+                             for k in (1, 2, 3)]),
+        )
+        sim = FluidSimulator(sc, cfg, state=st)
+        sim.step(100)
+        torch.cuda.synchronize()
+        outs[mode] = sim.state
+    assert int(outs["cuda"].step) == 100
+    for name, got, ref in zip(outs["cuda"]._fields, outs["cuda"], outs["eager"]):
+        if got is None:
+            continue
+        assert bool(torch.isfinite(ref.float()).all()), name
+        assert torch.equal(got, ref), name
 
 
 # --- the roofline's probes (C2-C4) ----------------------------------------------
@@ -1100,11 +1145,12 @@ def test_cuda_launch_counter_counts_each_enqueued_entry_point(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", ["cip", "upwind"])
+@pytest.mark.parametrize("scheme", ["cip", "upwind", "kk"])
 def test_cuda_step_launches_once_a_phase_inside_its_spans(cuda_device, scheme):
     """A kernel-path step under the profiler with spans on: each phase span
     holds one ``f2d.launch``, each step four phases and four launches, and
-    the counter moves by four a step."""
+    the counter moves by four a step; KK's MAC phases open their ``.kk``
+    spans and move their ``.kk`` keys."""
     from fluid2d_tpu_torch import FluidSimulator
 
     sim = FluidSimulator.create(2, RES, scheme=scheme)
@@ -1119,6 +1165,9 @@ def test_cuda_step_launches_once_a_phase_inside_its_spans(cuda_device, scheme):
     names = [e.name for e in prof.events() if e.name.startswith("f2d.")]
     assert names.count("f2d.step") == 3 and names.count("f2d.launch") == 12
     assert sum(n.startswith("f2d.phase.") for n in names) == 12
+    if scheme == "kk":
+        assert names.count("f2d.phase.mac_velocity.kk") == names.count("f2d.phase.mac_dye.kk") == 3
+        assert launches["f2d_mac_velocity_phase.kk"] >= 3 and launches["f2d_mac_dye_phase.kk"] >= 3
 
 
 @pytest.mark.cuda

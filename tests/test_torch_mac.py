@@ -228,3 +228,27 @@ def test_init_state_matches_jax_for_mac(scheme):
     assert set(got) == set(ref) == {"step", "v", "v_alt", "p", "p_alt", "dye", "dye_alt"}
     for name, a in ref.items():
         np.testing.assert_array_equal(got[name], a, err_msg=name)
+
+
+# kk800's settings (bench_port/configs/kk800.json) at a CPU size: scene 2, KK,
+# Re 1000, dt 0.0125/res (a quarter of the CLI's default, inside KK's
+# forward-Euler bound up to the velocity limit), confinement 5, dye, SOR
+# ω 1.3 ×2, limit 10.
+KK800_RES = 24
+
+
+def test_kk800_settings_hold_100_steps_to_jax():
+    """100 steps of the port's path (the wrappers' plain versions on the
+    CPU) against the JAX package's, every leaf within STEP_TOL."""
+    kw = {"scheme": "kk", "re": 1000.0, "dt": 0.0125 / KK800_RES, "vor_eps": 5.0}
+    jax_scene, t_scene = _scene_pair(2, KK800_RES)
+    jcfg = JaxConfig.create(resolution=KK800_RES, kernels="xla", **kw)
+    start = _np_state(_seeded_state(jax_scene, jcfg))
+    ref = _np_state(jax_make_run_fn(jcfg)(_seeded_state(jax_scene, jcfg), jax_scene, 100))
+    assert int(ref["step"]) == 100 and np.isfinite(ref["v"]).all()
+    cfg = ft.SimConfig.create(resolution=KK800_RES, **kw)
+    assert cfg.enable_dye and cfg.pressure_solver == "sor" and cfg.n_pressure_iter == 2
+    got = state_to_numpy(ft.make_run_fn(cfg)(state_from_numpy(start, "cpu"), t_scene, 100))
+    assert set(got) == set(ref) and len(ref) == _leaf_count(cfg)
+    names = sorted(ref)
+    _assert_close([got[n] for n in names], [ref[n] for n in names], names, STEP_TOL)

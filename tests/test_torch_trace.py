@@ -3,14 +3,20 @@
 With spans off (the default) a step and a frame make no
 ``record_function``; with spans on, under ``torch.profiler``, each
 ``f2d.step`` holds its phase wrappers' spans in phase order, and
-``to_image`` its copy and its conversion. ``enabled`` restores the flag it
-found, also after an exception. A CPU tensor adds nothing to the
+``to_image`` its copy and its conversion; a MAC phase called with KK opens
+``f2d.phase.<name>.kk``. ``enabled`` restores the flag it found, also after
+an exception. With the kernel library stood in for by a stub that only
+returns, ``launch`` counts a step's launches on the CPU: KK's MAC phases
+under their own keys (``<entry>.kk``), each calling its plain entry point,
+with the same totals a step as upwind. A CPU tensor adds nothing to the
 device→host byte counter; ``add_launches`` adds counts × times. The
 counting of ``launch`` itself and of a CUDA frame's bytes needs a card
 (``tests/test_torch_cuda.py``). The CLI's ``--profile`` writes a Chrome
 trace holding the spans.
 """
 
+import collections
+import contextlib
 import json
 
 import numpy as np
@@ -31,9 +37,11 @@ STEPS = {
     "cip": ({"scheme": "cip"}, ["cip_velocity", "confinement", "sor", "cip_dye"]),
     "upwind": ({"scheme": "upwind", "re": 1000.0},
                ["mac_velocity", "confinement", "sor", "mac_dye"]),
+    "kk": ({"scheme": "kk", "re": 1000.0}, ["mac_velocity.kk", "confinement", "sor",
+                                            "mac_dye.kk"]),
     "kk_jacobi6": ({"scheme": "kk", "re": 1000.0, "pressure_solver": "jacobi",
-                    "n_pressure_iter": 6}, ["mac_velocity", "confinement", "jacobi", "jacobi",
-                                            "mac_dye"]),
+                    "n_pressure_iter": 6}, ["mac_velocity.kk", "confinement", "jacobi", "jacobi",
+                                            "mac_dye.kk"]),
     "cip_sor3_bare": ({"scheme": "cip", "vor_eps": None, "enable_dye": False,
                        "n_pressure_iter": 3}, ["cip_velocity", "sor", "sor"]),
 }
@@ -143,6 +151,73 @@ def test_add_launches_adds_counts_times_replays():
     finally:
         trace.add_launches(body, times=-6)
     assert {k: n for k, n in launches.items() if n} == {k: n for k, n in before.items() if n}
+
+
+class _StubLibrary:
+    """The kernel library's stand-in: every entry point returns 0 and is
+    recorded by name; nothing runs."""
+
+    def __init__(self):
+        self.called = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.called.append(name)
+            return 0
+
+        return entry
+
+
+@pytest.fixture
+def stub_launches(monkeypatch):
+    """The wrappers take their launch path on CPU tensors, into a stub
+    library; returns the stub."""
+    from types import SimpleNamespace
+
+    from fluid2d_tpu_torch.ops import _build, cuda_phases, cuda_stencil
+
+    lib = _StubLibrary()
+    for mod in (cuda_phases, cuda_stencil):
+        monkeypatch.setattr(mod, "on_cpu", lambda t, wrapper: False)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+# (create() keywords, the counter's keys a step moves by one each)
+COUNTED = {
+    "upwind": ({"scheme": "upwind", "re": 1000.0},
+               ["f2d_mac_velocity_phase", "f2d_confinement", "f2d_sor_iteration",
+                "f2d_mac_dye_phase"]),
+    "kk": ({"scheme": "kk", "re": 1000.0},
+           ["f2d_mac_velocity_phase.kk", "f2d_confinement", "f2d_sor_iteration",
+            "f2d_mac_dye_phase.kk"]),
+}
+
+
+@pytest.mark.parametrize("kind", list(COUNTED))
+def test_launch_counts_kk_forms_apart_with_the_same_totals(stub_launches, kind):
+    kw, keys = COUNTED[kind]
+    sim = FluidSimulator.create(2, RES, device="cpu", **kw)
+    before, runs_before = dict(launches), trace.entry_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with trace.enabled(True):
+            sim.step(3)
+    moved = {k: n - before.get(k, 0) for k, n in launches.items() if n != before.get(k, 0)}
+    assert moved == {k: 3 for k in keys}
+    assert sum(moved.values()) / 3 == 4  # launches a step, as before the split
+    by_entry = {k: n - runs_before[k] for k, n in trace.entry_launches().items()
+                if n != runs_before[k]}
+    assert by_entry == {k: 3 for k in COUNTED["upwind"][1]}
+    assert collections.Counter(stub_launches.called) == by_entry  # the C names, no form
+    spans = _spans(prof)
+    for key in keys:
+        if key.startswith("f2d_mac_"):
+            phase = "f2d.phase." + key.removeprefix("f2d_").replace("_phase", "")
+            assert _inside(spans, phase) == [["f2d.launch"]] * 3, phase
+    assert sum(n == "f2d.launch" for *_, n in spans) == 12
 
 
 def test_cli_profile_writes_a_chrome_trace_with_the_spans(tmp_path, capsys):

@@ -6,6 +6,10 @@ Dispatch has no fallback: ``kernels="eager"`` runs the plain versions,
 otherwise the wrappers run, which launch the CUDA kernels on CUDA tensors
 and take the plain versions on CPU tensors; ``kernels="cuda"`` refuses
 CPU tensors. A kernel that cannot run raises.
+
+A step's phases take an optional ``out``, a mapping from a phase's name to
+the tensors it writes (``models/replay.py`` plans them; a CUDA graph of the
+step replays into them). Without it every output is a fresh tensor.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from fluid2d_tpu_torch.ops.limiters import limit_vector_norm
 from fluid2d_tpu_torch.scenes.compile import Scene
 from fluid2d_tpu_torch.utils.dtypes import f32, to_transport
 
-__all__ = ["use_kernels", "pressure_chain", "update_pressure_and_limit", "confinement"]
+__all__ = ["use_kernels", "out_kw", "pressure_chain", "update_pressure_and_limit", "confinement"]
 
 
 def use_kernels(cfg: SimConfig, t: torch.Tensor) -> bool:
@@ -38,6 +42,12 @@ def use_kernels(cfg: SimConfig, t: torch.Tensor) -> bool:
         msg = f'kernels="cuda" needs CUDA tensors; the state is on {t.device}'
         raise ValueError(msg)
     return True
+
+
+def out_kw(out, name: str) -> dict:
+    """The keyword that hands phase `name` its planned outputs: ``{}``
+    without a plan (fresh outputs; the plain versions take none)."""
+    return {} if out is None else {"out": out[name]}
 
 
 def pressure_chain(cfg: SimConfig) -> list[int]:
@@ -55,7 +65,7 @@ def pressure_chain(cfg: SimConfig) -> list[int]:
     return [*calls, n] if n else calls
 
 
-def update_pressure_and_limit(p_cur, p_alt, v, scene: Scene, cfg: SimConfig):
+def update_pressure_and_limit(p_cur, p_alt, v, scene: Scene, cfg: SimConfig, out=None):
     """``n_pressure_iter`` pressure iterations of the configured solver, all
     reading the same pre-limit v, then the velocity-norm limiter
     (``fs/solver.py:87-89``), which is folded into the final call.
@@ -65,7 +75,8 @@ def update_pressure_and_limit(p_cur, p_alt, v, scene: Scene, cfg: SimConfig):
     ``fluid2d_tpu/models/common.py:98-119,146``, the chain runs in float32
     and rounds to the transport dtype once: the first call reads the
     state's pair, every call but the last returns a float32 pair, the last
-    returns the pair and the limited velocity in the transport dtype."""
+    returns the pair and the limited velocity in the transport dtype. Call
+    k of the chain writes ``out["pressure.<k>"]`` when `out` is given."""
     chain = pressure_chain(cfg)
     if not chain:
         return p_cur, p_alt, to_transport(limit_vector_norm(f32(v), cfg.velocity_limit), v.dtype)
@@ -78,13 +89,15 @@ def update_pressure_and_limit(p_cur, p_alt, v, scene: Scene, cfg: SimConfig):
         args = (scene.pbc_code, scene.fluid8, cfg.sor_omega, cfg.dt, cfg.dx)
     *head, last = chain
     pair = (p_cur, p_alt)
-    for n in head:
-        pair = solve(*pair, v[0], v[1], *args, n_iters=n, out_dtype=torch.float32)
+    for k, n in enumerate(head):
+        pair = solve(*pair, v[0], v[1], *args, n_iters=n, out_dtype=torch.float32,
+                     **out_kw(out, f"pressure.{k}"))
     return solve(*pair, v[0], v[1], *args, n_iters=last, v_limit=cfg.velocity_limit,
-                 out_dtype=p_cur.dtype)
+                 out_dtype=p_cur.dtype, **out_kw(out, f"pressure.{len(head)}"))
 
 
-def confinement(v_cur, v_alt, scene: Scene, cfg: SimConfig):
+def confinement(v_cur, v_alt, scene: Scene, cfg: SimConfig, out=None):
     """Vorticity confinement + swap (``fs/solver.py:84-86``)."""
     conf = confinement_cuda if use_kernels(cfg, v_cur) else confinement_plain
-    return conf(v_cur, v_alt, scene.fluid8, cfg.dt, cfg.vor_eps, cfg.dx)
+    return conf(v_cur, v_alt, scene.fluid8, cfg.dt, cfg.vor_eps, cfg.dx,
+                **out_kw(out, "confinement"))

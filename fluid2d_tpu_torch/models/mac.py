@@ -18,8 +18,15 @@ package:
 
 from __future__ import annotations
 
+import torch
+
 from fluid2d_tpu_torch.config import SimConfig
-from fluid2d_tpu_torch.models.common import confinement, update_pressure_and_limit, use_kernels
+from fluid2d_tpu_torch.models.common import (
+    confinement,
+    out_kw,
+    update_pressure_and_limit,
+    use_kernels,
+)
 from fluid2d_tpu_torch.ops.cuda_phases import (
     mac_dye_phase_cuda,
     mac_dye_phase_plain,
@@ -33,26 +40,30 @@ from fluid2d_tpu_torch.utils.trace import span
 __all__ = ["mac_step"]
 
 
-def mac_step(state: SimState, scene: Scene, cfg: SimConfig) -> SimState:
+def mac_step(state: SimState, scene: Scene, cfg: SimConfig, out=None) -> SimState:
     """One MAC time step (``MacSolver.update``, ``fs/solver.py:79-89``;
-    dye tail: ``DyeMacSolver.update``, ``:136-152``)."""
+    dye tail: ``DyeMacSolver.update``, ``:136-152``). With `out` (the
+    phases' planned outputs, ``models/common.py``) every output, the step
+    counter's included, lands in the tensors it names."""
     with span("f2d.step"):
         kernels = use_kernels(cfg, state.v)
         velocity_phase = mac_velocity_phase_cuda if kernels else mac_velocity_phase_plain
         v_cur, v_alt = velocity_phase(state.v, state.p, state.v_alt, scene, cfg.scheme, cfg.re,
-                                      cfg.dt, cfg.dx)
+                                      cfg.dt, cfg.dx, **out_kw(out, "velocity"))
 
         if cfg.vor_eps is not None:
-            v_cur, v_alt = confinement(v_cur, v_alt, scene, cfg)
+            v_cur, v_alt = confinement(v_cur, v_alt, scene, cfg, out)
 
-        p_cur, p_alt, v_cur = update_pressure_and_limit(state.p, state.p_alt, v_cur, scene, cfg)
+        p_cur, p_alt, v_cur = update_pressure_and_limit(state.p, state.p_alt, v_cur, scene, cfg,
+                                                        out)
 
-        kw = dict(step=state.step + 1, v=v_cur, v_alt=v_alt, p=p_cur, p_alt=p_alt)
+        step = state.step + 1 if out is None else torch.add(state.step, 1, out=out["step"][0])
+        kw = dict(step=step, v=v_cur, v_alt=v_alt, p=p_cur, p_alt=p_alt)
 
         if cfg.enable_dye:
             dye_phase = mac_dye_phase_cuda if kernels else mac_dye_phase_plain
             dye_cur, dc = dye_phase(state.dye, state.dye_alt, v_cur, scene, cfg.scheme, cfg.dt,
-                                    cfg.dx)
+                                    cfg.dx, **out_kw(out, "dye"))
             kw.update(dye=dye_cur, dye_alt=dc)
 
         return state._replace(**kw)

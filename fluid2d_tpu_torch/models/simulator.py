@@ -3,9 +3,11 @@
 and the whole ``FluidSimulator``: create, step, reset, the four views,
 screenshot, field dump, and ``.npz`` checkpoint save / load).
 
-PyTorch runs eagerly, so the run loop is a Python loop. It keeps the JAX
-package's shape — a two-step body plus a one-step remainder — so that a
-later graph-captured body drops in with the same buffer period.
+PyTorch runs eagerly, so ``make_run_fn`` is a Python loop; it keeps the
+JAX package's shape, a two-step body plus a one-step remainder. On a CUDA
+state on the kernel path ``FluidSimulator.step`` replays CUDA graphs of
+the step instead (``models/replay.py``), over a fixed cycle of buffers of
+period two.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ import torch
 from fluid2d_tpu_torch.config import SimConfig, resolve_device
 from fluid2d_tpu_torch.models.cip import cip_step
 from fluid2d_tpu_torch.models.mac import mac_step
+from fluid2d_tpu_torch.models.replay import StepGraphs, engages, graph_key
 from fluid2d_tpu_torch.scenes.compile import Scene, get_scene
 from fluid2d_tpu_torch.state import SimState, init_state
 from fluid2d_tpu_torch.utils import io as fio
+from fluid2d_tpu_torch.utils import trace
 from fluid2d_tpu_torch.utils.trace import to_host
 from fluid2d_tpu_torch.utils.viz import render_rgb, to_image
 
@@ -83,6 +87,7 @@ class FluidSimulator:
             self.state = fio._cast_state(SimState(*(
                 None if leaf is None else leaf.to(self.device) for leaf in state)), cfg)
         self._run = make_run_fn(cfg)
+        self._graphs: StepGraphs | None = None
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -118,8 +123,23 @@ class FluidSimulator:
 
     # -- stepping ----------------------------------------------------------
     def step(self, n: int = 1) -> None:
-        """Advance n steps (kernel launches are queued; nothing waits on
-        the device)."""
+        """Advance n steps (the work is queued; nothing waits on the device).
+
+        On a CUDA state with the kernels (not ``kernels="eager"``) and a
+        pressure solve (``n_pressure_iter`` > 0), the steps are replays of
+        CUDA graphs of the step (``models/replay.py``), bit-identical to the
+        eager loop; otherwise the eager loop (``make_run_fn``) runs. The
+        graph path donates the state, as the JAX package's run does: its
+        leaves are the graphs' buffers and are written in place, so a state
+        or leaf held from before a call holds another step's values after
+        it. Copy what must be kept (``clone()``, or to the host)."""
+        if engages(self.cfg, self.state.v.device):
+            if self._graphs is None or self._graphs.key != graph_key(self.cfg, self.scene):
+                self._graphs = StepGraphs(self.state, self.scene, self.cfg)
+            self.state = self._graphs.run(self.state, n)
+            return
+        if self.state.v.device.type == "cuda":
+            trace.eager_cuda_steps += max(n, 0)
         self.state = self._run(self.state, self.scene, n)
 
     def reset(self) -> None:

@@ -89,7 +89,12 @@ versions wherever the float32 ones are. Each C entry point takes a storage
 flag.
 
 Each wrapper takes CPU tensors to its plain version and launches its
-kernel on CUDA tensors; there is no other path. Each runs inside the span
+kernel on CUDA tensors; there is no other path. Each takes an optional
+``out=``, the tensors it writes, in the order it returns them: a kernel
+writes into them (the plain version's results are copied in), and an
+output that shares a byte with an input raises, since the kernels read
+their inputs through restrict pointers. Without it the outputs are fresh
+tensors. Each runs inside the span
 ``f2d.phase.<name>`` (``utils/trace.py``), and ``ops/launch.py:launch``
 counts its kernel runs. A MAC phase called with KK runs inside
 ``f2d.phase.<name>.kk`` and is counted under ``<entry>.kk``, so the KK
@@ -111,10 +116,13 @@ from fluid2d_tpu_torch.ops.cip import (
 )
 from fluid2d_tpu_torch.ops.launch import (
     bf16_storage,
+    check_out,
+    fill_out,
     launch,
     log_traffic,
     on_cpu,
     operand_bytes,
+    outputs,
     recip32,
     require,
 )
@@ -150,14 +158,17 @@ def confinement_plain(v, v_alt, fluid8, dt: float, weight: float, dx: float):
     return vn.to(v.dtype), v
 
 
-def confinement_cuda(v, v_alt, fluid8, dt: float, weight: float, dx: float):
+def confinement_cuda(v, v_alt, fluid8, dt: float, weight: float, dx: float, *, out=None):
     """Vorticity confinement plus swap: ``v + dt·ε·f`` at fluid cells,
-    ``v_alt`` elsewhere; the new alternate is the input `v` (no copy)."""
+    ``v_alt`` elsewhere; the new alternate is the input `v` (no copy), so
+    `out` is one tensor, the new velocity."""
     with span("f2d.phase.confinement"):
+        check_out(out, 1, (v, v_alt, fluid8), "confinement_cuda")
         if _launch.TRAFFIC_LOG is not None:
             log_traffic("confinement", operand_bytes(v, v_alt, fluid8) + operand_bytes(v))
         if on_cpu(v, "confinement_cuda"):
-            return confinement_plain(v, v_alt, fluid8, dt, weight, dx)
+            vn, _ = confinement_plain(v, v_alt, fluid8, dt, weight, dx)
+            return fill_out(out, (vn,))[0], v
         dev, sd = v.device, v.dtype
         bf16 = bf16_storage("confinement_cuda", sd)
         _, x_rows, y_cols = v.shape
@@ -167,7 +178,7 @@ def confinement_cuda(v, v_alt, fluid8, dt: float, weight: float, dx: float):
             require(v_alt, "v_alt", vec, sd, dev),
             require(fluid8, "fluid8", plane, torch.int8, dev),
         ]
-        v_out = torch.empty_like(v)
+        (v_out,) = outputs(out, [(vec, sd)], dev)
         launch("f2d_confinement", dev, *ptrs, v_out.data_ptr(), x_rows, y_cols, bf16, recip32(dx),
                dt * weight)
         return v_out, v
@@ -212,18 +223,22 @@ def cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
 
 
 def cip_velocity_phase_cuda(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
-                            re: float, dt: float, dx: float):
+                            re: float, dt: float, dx: float, *, out=None):
     """Whole CIP velocity phase: BC, non-advection, gradient update, CIP
-    advection. Returns ``(v_cur, vx_cur, vy_cur, v_na, vx_na, vy_na)``;
-    the last three become the alternate buffers."""
+    advection. Returns ``(v_cur, vx_cur, vy_cur, v_na, vx_na, vy_na)``, or
+    `out` (six tensors shaped as v) holding them; the last three become
+    the alternate buffers."""
     with span("f2d.phase.cip_velocity"):
+        check_out(out, 6, (v, p, v_alt, vx, vx_alt, vy, vy_alt, scene.bc_const, scene.vbc_code,
+                           scene.not_wall8, scene.fluid8), "cip_velocity_phase_cuda")
         if _launch.TRAFFIC_LOG is not None:
             log_traffic("cip_velocity_phase",
                         operand_bytes(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene.bc_const,
                                       scene.vbc_code, scene.not_wall8, scene.fluid8)
                         + 6 * operand_bytes(v))
         if on_cpu(v, "cip_velocity_phase_cuda"):
-            return cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene, re, dt, dx)
+            return fill_out(out, cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt,
+                                                          scene, re, dt, dx))
         dev, sd = v.device, v.dtype
         bf16 = bf16_storage("cip_velocity_phase_cuda", sd)
         _, x_rows, y_cols = v.shape
@@ -241,7 +256,7 @@ def cip_velocity_phase_cuda(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
             require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
             require(scene.fluid8, "scene.fluid8", plane, i8, dev),
         ]
-        outs = tuple(torch.empty_like(v) for _ in range(6))
+        outs = outputs(out, [(vec, sd)] * 6, dev)
         launch("f2d_cip_velocity_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols,
                bf16, *_cip_constants(re, dt, dx))
         return outs
@@ -267,19 +282,22 @@ def cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene
 
 
 def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
-                       re: float, dt: float, dx: float):
+                       re: float, dt: float, dx: float, *, out=None):
     """Whole CIP dye phase: inflow BC, diffusion, gradient update, CIP
     advection by `vel` (the limited velocity), [0, 1] clamp. Returns
-    ``(dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na)``."""
+    ``(dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na)``, or `out` (six
+    tensors shaped as dye) holding them."""
     with span("f2d.phase.cip_dye"):
+        check_out(out, 6, (dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene.bc_dye,
+                           scene.inflow8, scene.not_wall8, scene.fluid8), "cip_dye_phase_cuda")
         if _launch.TRAFFIC_LOG is not None:
             log_traffic("cip_dye_phase",
                         operand_bytes(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel,
                                       scene.bc_dye, scene.inflow8, scene.not_wall8, scene.fluid8)
                         + 6 * operand_bytes(dye))
         if on_cpu(dye, "cip_dye_phase_cuda"):
-            return cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
-                                       re, dt, dx)
+            return fill_out(out, cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt,
+                                                     vel, scene, re, dt, dx))
         dev, sd = dye.device, dye.dtype
         bf16 = bf16_storage("cip_dye_phase_cuda", sd)
         chans, x_rows, y_cols = dye.shape
@@ -298,7 +316,7 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
             require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
             require(scene.fluid8, "scene.fluid8", plane, i8, dev),
         ]
-        outs = tuple(torch.empty_like(dye) for _ in range(6))
+        outs = outputs(out, [(dyes, sd)] * 6, dev)
         launch("f2d_cip_dye_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols,
                chans, bf16, *_cip_constants(re, dt, dx))
         return outs
@@ -343,18 +361,22 @@ def mac_velocity_phase_plain(v, p, v_alt, scene, scheme: str, re: float, dt: flo
     return v_cur.to(sd), vc.to(sd)
 
 
-def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: float, dx: float):
+def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: float, dx: float, *,
+                            out=None):
     """Whole MAC velocity phase: velocity BC, then the upwind or KK
-    momentum update at fluid cells. Returns ``(v_cur, vc)``."""
+    momentum update at fluid cells. Returns ``(v_cur, vc)``, or `out` (two
+    tensors shaped as v) holding them."""
     form = _FORM.get(scheme, "")
     with span("f2d.phase.mac_velocity" + form):
         _advect_fn(scheme)
+        check_out(out, 2, (v, p, v_alt, scene.bc_const, scene.vbc_code, scene.fluid8),
+                  "mac_velocity_phase_cuda")
         if _launch.TRAFFIC_LOG is not None:
             log_traffic(f"mac_velocity_phase_{scheme}",
                         operand_bytes(v, p, v_alt, scene.bc_const, scene.vbc_code, scene.fluid8)
                         + 2 * operand_bytes(v))
         if on_cpu(v, "mac_velocity_phase_cuda"):
-            return mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx)
+            return fill_out(out, mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx))
         dev, sd = v.device, v.dtype
         bf16 = bf16_storage("mac_velocity_phase_cuda", sd)
         _, x_rows, y_cols = v.shape
@@ -367,8 +389,7 @@ def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: floa
             require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
             require(scene.fluid8, "scene.fluid8", plane, i8, dev),
         ]
-        v_out = torch.empty_like(v)
-        v_bc = torch.empty_like(v)
+        v_out, v_bc = outputs(out, [(vec, sd)] * 2, dev)
         launch("f2d_mac_velocity_phase" + form, dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(),
                x_rows, y_cols, int(scheme == "kk"), bf16, dt, recip32(dx), _inv_adv(scheme, dx),
                recip32(dx**2), recip32(re))
@@ -389,19 +410,21 @@ def mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: fl
     return dye_cur.to(sd), dc.to(sd)
 
 
-def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: float):
+def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: float, *, out=None):
     """Whole MAC dye phase: inflow BC, upwind or KK advection by `vel`
     (the limited velocity) at fluid cells, [0, 1] clamp. Returns
-    ``(dye_cur, dc)``."""
+    ``(dye_cur, dc)``, or `out` (two tensors shaped as dye) holding them."""
     form = _FORM.get(scheme, "")
     with span("f2d.phase.mac_dye" + form):
         _advect_fn(scheme)
+        check_out(out, 2, (dye, dye_alt, vel, scene.bc_dye, scene.inflow8, scene.fluid8),
+                  "mac_dye_phase_cuda")
         if _launch.TRAFFIC_LOG is not None:
             log_traffic(f"mac_dye_phase_{scheme}",
                         operand_bytes(dye, dye_alt, vel, scene.bc_dye, scene.inflow8, scene.fluid8)
                         + 2 * operand_bytes(dye))
         if on_cpu(dye, "mac_dye_phase_cuda"):
-            return mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx)
+            return fill_out(out, mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx))
         dev, sd = dye.device, dye.dtype
         bf16 = bf16_storage("mac_dye_phase_cuda", sd)
         chans, x_rows, y_cols = dye.shape
@@ -415,8 +438,7 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
             require(scene.inflow8, "scene.inflow8", plane, i8, dev),
             require(scene.fluid8, "scene.fluid8", plane, i8, dev),
         ]
-        d_out = torch.empty_like(dye)
-        d_bc = torch.empty_like(dye)
+        d_out, d_bc = outputs(out, [(dyes, sd)] * 2, dev)
         launch("f2d_mac_dye_phase" + form, dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), x_rows,
                y_cols, chans, int(scheme == "kk"), bf16, dt, _inv_adv(scheme, dx))
         return d_out, d_bc

@@ -107,13 +107,15 @@ from fluid2d_tpu_torch.ops.cip import cip_advect
 from fluid2d_tpu_torch.ops.launch import (
     STORAGE_DTYPES,
     bf16_storage,
+    check_out,
+    fill_out,
     launch,
     log_traffic,
     on_cpu,
     operand_bytes,
+    outputs,
     recip32,
     require,
-    require_no_alias,
 )
 from fluid2d_tpu_torch.ops.limiters import limit_vector_norm
 from fluid2d_tpu_torch.ops.pressure import jacobi_pressure_iteration, sor_pressure_iteration
@@ -223,7 +225,7 @@ def sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: 
 
 def sor_iteration_cuda(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: float,
                        dx: float, *, n_iters: int = 1, v_limit: float | None = None,
-                       out_dtype: torch.dtype | None = None):
+                       out_dtype: torch.dtype | None = None, out=None):
     """`n_iters` (1 or 2) red-black SOR iterations (pressure BC, odd sweep,
     even sweep each) in one launch, with the velocity-norm limiter folded in
     when `v_limit` is given; the pair is returned as `out_dtype` (default:
@@ -231,17 +233,21 @@ def sor_iteration_cuda(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: f
 
     CPU tensors take :func:`sor_iteration_plain`. CUDA tensors launch
     ``csrc/sor.cu``; anything the kernel does not take (dtype, shape,
-    layout, mixed devices) raises. Outputs are fresh tensors.
+    layout, mixed devices) raises. Outputs are fresh tensors, or `out`
+    (the pair, and the limited velocity with `v_limit`).
     """
     with span("f2d.phase.sor"):
         _check_n_iters(n_iters, SOR_MAX_ITERS, "SOR")
         sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "sor_iteration_cuda")
+        check_out(out, 2 if v_limit is None else 3, (p_cur, p_alt, u, w, pbc_code, fluid8),
+                  "sor_iteration_cuda")
         if _launch.TRAFFIC_LOG is not None:
             name = "sor_iteration" + ("" if n_iters == 1 else f"_n{n_iters}")
             _log_pressure(name, p_cur, p_alt, u, w, pbc_code, fluid8, v_limit, out_dt)
         if on_cpu(p_cur, "sor_iteration_cuda"):
-            return sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega, dt, dx,
-                                       n_iters=n_iters, v_limit=v_limit, out_dtype=out_dt)
+            return fill_out(out, sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega,
+                                                     dt, dx, n_iters=n_iters, v_limit=v_limit,
+                                                     out_dtype=out_dt))
         dev = p_cur.device
         x_rows, y_cols = p_cur.shape
         plane = (x_rows, y_cols)
@@ -254,16 +260,14 @@ def sor_iteration_cuda(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: f
             require(pbc_code, "pbc_code", plane, i8, dev),
             require(fluid8, "fluid8", plane, i8, dev),
         ]
-        p_out = torch.empty(plane, dtype=out_dt, device=dev)
-        p_bc = torch.empty_like(p_out)
-        v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
-        launch("f2d_sor_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(), _ptr(v_lim),
+        specs = [(plane, out_dt)] * 2 + ([] if v_limit is None else [((2, x_rows, y_cols), sd)])
+        outs = outputs(out, specs, dev)
+        v_lim = outs[2] if v_limit is not None else None
+        launch("f2d_sor_iteration", dev, *ptrs, outs[0].data_ptr(), outs[1].data_ptr(), _ptr(v_lim),
                x_rows, y_cols, n_iters, bf16_storage("sor_iteration_cuda", sd),
                int(in_dt != torch.float32), int(out_dt != torch.float32),
                omega, 1.0 - omega, dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
-        if v_lim is None:
-            return p_out, p_bc
-        return p_out, p_bc, v_lim
+        return outs
 
 
 class _JacobiMasks:
@@ -295,7 +299,7 @@ def jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, d
 
 def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx: float, *,
                           n_iters: int = 1, v_limit: float | None = None,
-                          out_dtype: torch.dtype | None = None):
+                          out_dtype: torch.dtype | None = None, out=None):
     """`n_iters` (1..4) Jacobi iterations (pressure BC, then the sweep of
     every not-wall cell) in one launch, with the velocity-norm limiter
     folded in when `v_limit` is given; the pair is returned as `out_dtype`
@@ -303,17 +307,21 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
 
     CPU tensors take :func:`jacobi_iteration_plain`. CUDA tensors launch
     ``csrc/jacobi.cu``; anything the kernel does not take raises. Outputs
-    are fresh tensors.
+    are fresh tensors, or `out` (the pair, and the limited velocity with
+    `v_limit`).
     """
     with span("f2d.phase.jacobi"):
         _check_n_iters(n_iters, JACOBI_MAX_ITERS, "Jacobi")
         sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "jacobi_iteration_cuda")
+        check_out(out, 2 if v_limit is None else 3, (p_cur, p_alt, u, w, pbc_code, not_wall8),
+                  "jacobi_iteration_cuda")
         if _launch.TRAFFIC_LOG is not None:
             _log_pressure(f"jacobi_iteration_n{n_iters}", p_cur, p_alt, u, w, pbc_code, not_wall8,
                           v_limit, out_dt)
         if on_cpu(p_cur, "jacobi_iteration_cuda"):
-            return jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt, dx,
-                                          n_iters=n_iters, v_limit=v_limit, out_dtype=out_dt)
+            return fill_out(out, jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt,
+                                                        dx, n_iters=n_iters, v_limit=v_limit,
+                                                        out_dtype=out_dt))
         dev = p_cur.device
         x_rows, y_cols = p_cur.shape
         plane = (x_rows, y_cols)
@@ -326,16 +334,14 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
             require(pbc_code, "pbc_code", plane, i8, dev),
             require(not_wall8, "not_wall8", plane, i8, dev),
         ]
-        p_out = torch.empty(plane, dtype=out_dt, device=dev)
-        p_bc = torch.empty_like(p_out)
-        v_lim = None if v_limit is None else torch.empty((2, x_rows, y_cols), dtype=sd, device=dev)
-        launch("f2d_jacobi_iteration", dev, *ptrs, p_out.data_ptr(), p_bc.data_ptr(), _ptr(v_lim),
-               x_rows, y_cols, n_iters, bf16_storage("jacobi_iteration_cuda", sd),
+        specs = [(plane, out_dt)] * 2 + ([] if v_limit is None else [((2, x_rows, y_cols), sd)])
+        outs = outputs(out, specs, dev)
+        v_lim = outs[2] if v_limit is not None else None
+        launch("f2d_jacobi_iteration", dev, *ptrs, outs[0].data_ptr(), outs[1].data_ptr(),
+               _ptr(v_lim), x_rows, y_cols, n_iters, bf16_storage("jacobi_iteration_cuda", sd),
                int(in_dt != torch.float32), int(out_dt != torch.float32),
                dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
-        if v_lim is None:
-            return p_out, p_bc
-        return p_out, p_bc, v_lim
+        return outs
 
 
 # --- C1: standalone CIP advection ---------------------------------------------------
@@ -385,20 +391,14 @@ def cip_advect_cuda(f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8, dt: float, dx
             msg = f"cip_advect_cuda: f is {f.dtype}; expected one of {STORAGE_DTYPES}"
             raise TypeError(msg)
         ins = (f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8)
-        if out is not None:
-            require_no_alias(out, ins, "cip_advect_cuda")
+        check_out(out, 3, ins, "cip_advect_cuda")
         chans = f.shape[0]
         if _launch.TRAFFIC_LOG is not None:
             operands = ins if not vel_is_f else (f, fx, fy, alt_f, alt_fx, alt_fy, fluid8)
             log_traffic(cip_advect_name(chans, vel_is_f), operand_bytes(*operands)
                         + 3 * operand_bytes(f))
         if on_cpu(f, "cip_advect_cuda"):
-            got = cip_advect_plain(*ins, dt, dx)
-            if out is None:
-                return got
-            for o, g in zip(out, got):
-                o.copy_(g)
-            return tuple(out)
+            return fill_out(out, cip_advect_plain(*ins, dt, dx))
         dev, sd = f.device, f.dtype
         _, x_rows, y_cols = f.shape
         field, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
@@ -409,12 +409,7 @@ def cip_advect_cuda(f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8, dt: float, dx
         ptrs += [require(t, name, field, sd, dev)
                  for t, name in ((alt_f, "alt_f"), (alt_fx, "alt_fx"), (alt_fy, "alt_fy"))]
         ptrs.append(require(fluid8, "fluid8", plane, torch.int8, dev))
-        if out is None:
-            out = tuple(torch.empty_like(f) for _ in range(3))
-        else:
-            out = tuple(out)
-            for k, o in enumerate(out):
-                require(o, f"out[{k}]", field, sd, dev)
+        out = outputs(out, [(field, sd)] * 3, dev)
         launch("f2d_cip_advect", dev, *ptrs, *(o.data_ptr() for o in out), x_rows, y_cols, chans,
                int(sd == torch.bfloat16), dt, dx, dx**2, dx**3, recip32(dx), recip32(dx**2))
         return out

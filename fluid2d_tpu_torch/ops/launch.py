@@ -29,8 +29,9 @@ import torch
 
 from fluid2d_tpu_torch.utils.trace import launches, span
 
-__all__ = ["on_cpu", "require", "require_no_alias", "launch", "recip32", "TRAFFIC_LOG",
-           "log_traffic", "operand_bytes", "STORAGE_DTYPES", "bf16_storage", "entry"]
+__all__ = ["on_cpu", "require", "overlaps", "require_no_alias", "check_out", "outputs",
+           "fill_out", "launch", "recip32", "TRAFFIC_LOG", "log_traffic", "operand_bytes",
+           "STORAGE_DTYPES", "bf16_storage", "entry"]
 
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' field storage types
 
@@ -106,17 +107,51 @@ def require(t: torch.Tensor, name: str, shape: tuple[int, ...], dtype: torch.dty
     return t.data_ptr()
 
 
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors' byte ranges on one device intersect."""
+    a_lo, b_lo = a.data_ptr(), b.data_ptr()
+    return (a.device == b.device and a_lo < b_lo + b.numel() * b.element_size()
+            and b_lo < a_lo + a.numel() * a.element_size())
+
+
 def require_no_alias(outs, ins, wrapper: str) -> None:
     """Raise if any output tensor shares a byte of storage with any input
     (a kernel reads its inputs through read-only restrict pointers)."""
-    for o in outs:
-        o_lo = o.data_ptr()
-        o_hi = o_lo + o.numel() * o.element_size()
-        for t in ins:
-            t_lo = t.data_ptr()
-            if t.device == o.device and t_lo < o_hi and o_lo < t_lo + t.numel() * t.element_size():
-                msg = f"{wrapper}: an output aliases an input"
-                raise ValueError(msg)
+    if any(overlaps(o, t) for o in outs for t in ins):
+        msg = f"{wrapper}: an output aliases an input"
+        raise ValueError(msg)
+
+
+def check_out(out, n: int, ins, wrapper: str) -> None:
+    """Check a wrapper's `out=` before it routes by device: `n` tensors, none
+    sharing a byte with an input (`ins`). None (fresh outputs) passes."""
+    if out is None:
+        return
+    if len(out) != n:
+        msg = f"{wrapper}: out= takes {n} tensors, got {len(out)}"
+        raise ValueError(msg)
+    require_no_alias(out, ins, wrapper)
+
+
+def outputs(out, specs, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """A kernel's outputs: fresh tensors of `specs` (``(shape, dtype)``
+    each) on `device`, or the given `out`, each checked against its spec."""
+    if out is None:
+        return tuple(torch.empty(shape, dtype=dt, device=device) for shape, dt in specs)
+    for k, (o, (shape, dt)) in enumerate(zip(out, specs)):
+        require(o, f"out[{k}]", shape, dt, device)
+    return tuple(out)
+
+
+def fill_out(out, got) -> tuple[torch.Tensor, ...]:
+    """A plain version's results `got`, or, with `out`, copied into it (each
+    checked against its result's shape and dtype) and `out` returned."""
+    if out is None:
+        return tuple(got)
+    for k, (o, g) in enumerate(zip(out, got)):
+        require(o, f"out[{k}]", tuple(g.shape), g.dtype, g.device)
+        o.copy_(g)
+    return tuple(out)
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

@@ -21,6 +21,9 @@ on the host thread (the program is single-threaded). Every span is named
                             ``mac_dye.kk``
 ``f2d.launch``              ``ops/launch.py:launch``: library lookup, device
                             guard, stream, the C call, the return code's check
+``f2d.graph_replay``        ``models/replay.py``: one replay of a step's CUDA
+                            graph (the graph path of ``FluidSimulator.step``,
+                            where the three spans above do not open)
 ``f2d.to_image.convert``    ``utils/viz.py:to_image``: clip, flip, scale, cast to
                             uint8; for a CUDA frame the enqueue of the kernel V1
                             (``ops/cuda_view.py``), before ``d2h``; for a host
@@ -41,7 +44,16 @@ Counters, counted whether spans are on or off:
   :func:`entry_launches` gives the totals by C entry point;
 - ``d2h_bytes``: bytes the front end copied from the card to the host
   (:func:`to_host`): X·Y·3 for ``to_image`` of a CUDA frame, the uint8
-  image, not the float32 frame.
+  image, not the float32 frame;
+- the graph path of the run loop (``models/replay.py``):
+  ``graph_replays[<key>]``, one a replay of a step's graph, by graph
+  (``<scheme>.01`` one step from layout L0, ``<scheme>.10`` one from L1,
+  ``<scheme>.pair`` two from L0);
+  ``graph_captures``, one a graph captured; ``graph_state_copies``, one a
+  state copied into the workspace because its leaves were in no layout;
+  ``eager_cuda_steps``, one a step of a CUDA state run through the
+  wrappers from Python: the eager loop, or the warm-up step before a
+  capture.
 """
 
 from __future__ import annotations
@@ -52,13 +64,18 @@ from collections.abc import Mapping
 
 import torch
 
-__all__ = ["span", "enabled", "launches", "entry_launches", "add_launches", "to_host"]
+__all__ = ["span", "enabled", "launches", "entry_launches", "add_launches", "to_host",
+           "graph_replays"]
 
 _on = False
 _OFF = contextlib.nullcontext()
 
 launches: collections.Counter[str] = collections.Counter()
 d2h_bytes = 0
+graph_replays: collections.Counter[str] = collections.Counter()
+graph_captures = 0
+graph_state_copies = 0
+eager_cuda_steps = 0
 
 
 def span(name: str):

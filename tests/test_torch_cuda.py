@@ -47,6 +47,18 @@ confinement, dye): one ``step(100)`` through the kernels bit-equal to the
 eager path. KK's MAC phases open their ``.kk`` spans and move their
 ``.kk`` launch-counter keys.
 
+The graph path of ``FluidSimulator.step`` (``models/replay.py``): n = 1, 2,
+5 and 100 replayed steps, and n more from the layout reached, bit-equal to
+``make_run_fn``'s eager loop on every leaf, alternates included, for CIP,
+upwind, KK, CIP at bf16, KK with six Jacobi iterations at bf16 and upwind
+with three SOR iterations and no confinement, the workspace filled with NaN
+before the capture; 7 + 5 steps equal to 12; one state copy after
+``reset`` and after an assigned state, none for a simulator made by
+``load``; the launch counter moving by the eager loop's counts a step; no
+eager step, state copy or capture over the view's frames after their
+warm-up; and the eager loop where the path does not engage
+(``kernels="eager"``, no pressure solve).
+
 The standalone CIP advection (C1, one launch on 32×32 tiles of every
 channel) bit-equal at float32 and bf16 in both forms, on scene 2 and on
 open scenes with fluid to every edge, into fresh outputs and `out=`; the
@@ -415,6 +427,196 @@ def test_cuda_kk800_step100_bit_equal_to_eager_run(cuda_device):
             continue
         assert bool(torch.isfinite(ref.float()).all()), name
         assert torch.equal(got, ref), name
+
+
+# --- the graph path of FluidSimulator.step (models/replay.py) ------------------
+
+GRAPH_CONFIGS = {
+    "cip": {},
+    "upwind": {"scheme": "upwind", "re": 1000.0},
+    "kk": {"scheme": "kk", "re": 1000.0},
+    "cip_bf16": {"dtype": "bfloat16"},
+    "kk_jacobi6_bf16": {"scheme": "kk", "pressure_solver": "jacobi", "n_pressure_iter": 6,
+                        "dtype": "bfloat16"},
+    "upwind_sor3_noconf": {"scheme": "upwind", "n_pressure_iter": 3, "vor_eps": None},
+}
+
+
+def _seeded(cfg, sc, device):
+    """A smooth state of `cfg` on scene `sc`: the fluid cells moving, a
+    pressure field and, with dye, three dye patterns."""
+    x_rows, y_cols = sc.shape
+    fluid = (sc.mask == 0).float()
+    gx = torch.linspace(0, 2 * np.pi, x_rows, device=device)[:, None]
+    gy = torch.linspace(0, 2 * np.pi, y_cols, device=device)[None, :]
+    st = init_state(sc, cfg, device)
+    dt = st.v.dtype
+    st = st._replace(v=torch.stack([0.5 * torch.sin(3 * gx) * torch.cos(2 * gy) * fluid,
+                                    0.4 * torch.cos(2 * gx) * torch.sin(gy) * fluid]).to(dt),
+                     p=(0.05 * torch.sin(gx + gy) * fluid).to(dt))
+    if st.dye is not None:
+        st = st._replace(dye=torch.stack([0.5 + 0.4 * torch.sin(k * gx) * torch.cos(gy) * fluid
+                                          for k in (1, 2, 3)]).to(dt))
+    return st
+
+
+def _clone(st):
+    return st._replace(**{f: t.clone() for f, t in st._asdict().items() if t is not None})
+
+
+def _assert_states_equal(got, ref, what):
+    for name, g, r in zip(got._fields, got, ref):
+        assert (g is None) == (r is None), f"{what}: {name}"
+        if g is not None:
+            assert g.dtype == r.dtype and torch.equal(g, r), f"{what}: {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 5, 100])
+@pytest.mark.parametrize("config", GRAPH_CONFIGS.values(), ids=GRAPH_CONFIGS.keys())
+def test_cuda_graph_run_bit_equal_to_eager_run(cuda_device, config, n):
+    """n steps replayed from the graphs (the workspace filled with NaN before
+    the capture, so a cell a kernel leaves unwritten shows) bit-equal to
+    ``make_run_fn``'s eager loop through the same kernels, every leaf,
+    alternates included; then n more from the layout reached."""
+    from fluid2d_tpu_torch.models.replay import StepGraphs
+
+    cfg = SimConfig.create(resolution=RES, **config)
+    sc = scene_for_dtype(get_scene(2, RES, cuda_device), cfg)
+    st = _seeded(cfg, sc, cuda_device)
+    ref = make_run_fn(cfg)(_clone(st), sc, n)
+    graphs = StepGraphs(st, sc, cfg, fill=float("nan"))
+    got = graphs.run(st, n)
+    torch.cuda.synchronize()
+    _assert_states_equal(got, ref, f"{n} steps")
+    assert graphs.locate(got) == n % 2
+    ref = make_run_fn(cfg)(ref, sc, n)
+    got = graphs.run(got, n)
+    torch.cuda.synchronize()
+    _assert_states_equal(got, ref, f"{n} + {n} steps")
+    assert int(got.step) == 2 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", GRAPH_CONFIGS.values(), ids=GRAPH_CONFIGS.keys())
+def test_cuda_graph_steps_7_then_5_equal_12(cuda_device, config):
+    """``FluidSimulator.step(7)`` then ``step(5)`` on the graph path equal
+    ``step(12)`` on it and 12 steps of the eager loop; the graphs are
+    captured once, at the first call."""
+    from fluid2d_tpu_torch import FluidSimulator
+
+    cfg = SimConfig.create(resolution=RES, **config)
+    sc = scene_for_dtype(get_scene(2, RES, cuda_device), cfg)
+    st = _seeded(cfg, sc, cuda_device)
+    ref = make_run_fn(cfg)(_clone(st), sc, 12)
+    a, b = FluidSimulator(sc, cfg, state=_clone(st)), FluidSimulator(sc, cfg, state=_clone(st))
+    captures = trace.graph_captures
+    a.step(7)
+    assert trace.graph_captures > captures
+    captures = trace.graph_captures
+    a.step(5)
+    assert trace.graph_captures == captures
+    b.step(12)
+    torch.cuda.synchronize()
+    _assert_states_equal(a.state, ref, "7 + 5")
+    _assert_states_equal(b.state, ref, "12")
+
+
+@pytest.mark.cuda
+def test_cuda_graph_state_copied_once_after_reset_and_load(cuda_device, tmp_path):
+    """A state in no layout is copied into the workspace once: after
+    ``reset``, and after a loaded state is assigned; a simulator made by
+    ``load`` takes its state's leaves as its buffers and copies nothing.
+    Every path lands on the eager loop's values."""
+    from fluid2d_tpu_torch import FluidSimulator
+
+    sim = FluidSimulator.create(2, RES)
+    sim.step(3)
+    sim.save(tmp_path / "a.npz")
+    copies = trace.graph_state_copies
+    sim.reset()
+    sim.step(2)
+    sim.step(3)
+    assert trace.graph_state_copies == copies + 1
+    ref = make_run_fn(sim.cfg)(init_state(sim.scene, sim.cfg, cuda_device), sim.scene, 5)
+    _assert_states_equal(sim.state, ref, "reset + 5")
+    loaded = FluidSimulator.load(tmp_path / "a.npz")
+    copies = trace.graph_state_copies
+    sim.state = loaded.state._replace(**{f: t.clone() for f, t in loaded.state._asdict().items()
+                                         if t is not None})
+    sim.step(4)
+    assert trace.graph_state_copies == copies + 1
+    loaded.step(4)
+    assert trace.graph_state_copies == copies + 1
+    torch.cuda.synchronize()
+    _assert_states_equal(sim.state, loaded.state, "load + 4")
+    assert sim.step_count == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["cip", "upwind", "kk"])
+def test_cuda_graph_launches_per_step_equal_eager(cuda_device, scheme):
+    """The launch counter moves by the same counts a step, by entry point,
+    on the graph path (replays add their graphs' launches; a capture adds
+    none) as on the eager loop."""
+    from fluid2d_tpu_torch import FluidSimulator
+
+    sim = FluidSimulator.create(2, RES, scheme=scheme)
+    run = make_run_fn(sim.cfg)
+    steps = 7
+    before = trace.entry_launches()
+    run(_clone(sim.state), sim.scene, steps)
+    eager = trace.entry_launches()
+    eager.subtract(before)
+    for warm in (True, False):
+        before = trace.entry_launches()
+        sim.step(steps)
+        got = trace.entry_launches()
+        got.subtract(before)
+        assert +got == +eager, ("first call" if warm else "replays only", got, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("bc", "res", "scheme"), [(1, 400, "upwind"), (2, RES, "cip")])
+def test_cuda_graph_frames_run_no_eager_steps(cuda_device, bc, res, scheme):
+    """The view's frame loop (``step(5)``, render, 8-bit image) after its
+    warm-up: no eager step on the card, no state copy, no capture; each
+    frame's steps are replays."""
+    from fluid2d_tpu_torch import FluidSimulator
+    from fluid2d_tpu_torch.utils.viz import to_image
+
+    sim = FluidSimulator.create(bc, res, scheme=scheme)
+    for _ in range(2):
+        sim.step(5)
+        to_image(sim.render(0))
+    counts = (trace.eager_cuda_steps, trace.graph_state_copies, trace.graph_captures)
+    replays = sum(trace.graph_replays.values())
+    for _ in range(6):
+        sim.step(5)
+        img = to_image(sim.render(0))
+    assert img.shape == (sim.scene.shape[1], sim.scene.shape[0], 3)
+    assert (trace.eager_cuda_steps, trace.graph_state_copies, trace.graph_captures) == counts
+    assert sum(trace.graph_replays.values()) > replays
+    assert sim.step_count == 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [{"kernels": "eager"}, {"n_pressure_iter": 0}],
+                         ids=["kernels_eager", "no_pressure_solve"])
+def test_cuda_graph_path_stays_off_where_it_does_not_engage(cuda_device, config):
+    """``kernels="eager"`` and a step with no pressure solve run the eager
+    loop on the card: each step counted in ``eager_cuda_steps``, nothing
+    replayed or captured, the values the eager loop's."""
+    from fluid2d_tpu_torch import FluidSimulator
+
+    sim = FluidSimulator.create(2, RES, **config)
+    st = _clone(sim.state)
+    eager, replays = trace.eager_cuda_steps, sum(trace.graph_replays.values())
+    captures = trace.graph_captures
+    sim.step(3)
+    assert trace.eager_cuda_steps == eager + 3
+    assert sum(trace.graph_replays.values()) == replays and trace.graph_captures == captures
+    _assert_states_equal(sim.state, make_run_fn(sim.cfg)(st, sim.scene, 3), "eager loop")
 
 
 # --- the roofline's probes (C2-C4) ----------------------------------------------
@@ -1147,19 +1349,22 @@ def test_cuda_launch_counter_counts_each_enqueued_entry_point(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheme", ["cip", "upwind", "kk"])
 def test_cuda_step_launches_once_a_phase_inside_its_spans(cuda_device, scheme):
-    """A kernel-path step under the profiler with spans on: each phase span
-    holds one ``f2d.launch``, each step four phases and four launches, and
-    the counter moves by four a step; KK's MAC phases open their ``.kk``
-    spans and move their ``.kk`` keys."""
+    """A kernel-path step of the eager loop under the profiler with spans
+    on: each phase span holds one ``f2d.launch``, each step four phases and
+    four launches, and the counter moves by four a step; KK's MAC phases
+    open their ``.kk`` spans and move their ``.kk`` keys. On the graph path
+    (``FluidSimulator.step``) the same steps open one ``f2d.graph_replay``
+    a replay and none of those spans, and the counter moves as much."""
     from fluid2d_tpu_torch import FluidSimulator
 
     sim = FluidSimulator.create(2, RES, scheme=scheme)
     sim.step(2)
     torch.cuda.synchronize()
+    run = make_run_fn(sim.cfg)
     before = sum(launches.values())
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.profiler.profile(activities=acts) as prof, trace.enabled(True):
-        sim.step(3)
+        run(_clone(sim.state), sim.scene, 3)
     torch.cuda.synchronize()
     assert sum(launches.values()) == before + 12
     names = [e.name for e in prof.events() if e.name.startswith("f2d.")]
@@ -1168,6 +1373,14 @@ def test_cuda_step_launches_once_a_phase_inside_its_spans(cuda_device, scheme):
     if scheme == "kk":
         assert names.count("f2d.phase.mac_velocity.kk") == names.count("f2d.phase.mac_dye.kk") == 3
         assert launches["f2d_mac_velocity_phase.kk"] >= 3 and launches["f2d_mac_dye_phase.kk"] >= 3
+    before, replays = sum(launches.values()), sum(trace.graph_replays.values())
+    with torch.profiler.profile(activities=acts) as prof, trace.enabled(True):
+        sim.step(3)
+    torch.cuda.synchronize()
+    assert sum(launches.values()) == before + 12
+    names = [e.name for e in prof.events() if e.name.startswith("f2d.")]
+    assert names.count("f2d.graph_replay") == sum(trace.graph_replays.values()) - replays > 0
+    assert set(names) == {"f2d.graph_replay"}
 
 
 @pytest.mark.cuda

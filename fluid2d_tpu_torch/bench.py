@@ -34,7 +34,7 @@ from fluid2d_tpu_torch.scenes.compile import get_scene
 from fluid2d_tpu_torch.state import SimState, init_state
 from fluid2d_tpu_torch.utils.profiling import device_name, roofline_report, time_steps
 
-__all__ = ["bench_config", "run_preset", "main", "resolve_device"]
+__all__ = ["bench_config", "run_preset", "main"]
 
 
 def bench_config(res: int, scheme: str, steps: int, *, enable_dye=True, vor_eps=5.0, bc=2,

@@ -89,7 +89,9 @@ versions wherever the float32 ones are. Each C entry point takes a storage
 flag.
 
 Each wrapper takes CPU tensors to its plain version and launches its
-kernel on CUDA tensors; there is no other path. Each takes an optional
+kernel on CUDA tensors; there is no other path. Each declares its kernel
+call once, a ``KernelCall``, which ``ops/launch.py:run`` reads for the
+checks, the byte ledger and the launch. Each takes an optional
 ``out=``, the tensors it writes, in the order it returns them: a kernel
 writes into them (the plain version's results are copied in), and an
 output that shares a byte with an input raises, since the kernels read
@@ -106,7 +108,6 @@ from __future__ import annotations
 import torch
 
 from fluid2d_tpu_torch.ops.advection import advect_kk, advect_upwind
-from fluid2d_tpu_torch.ops import launch as _launch
 from fluid2d_tpu_torch.ops.cip import (
     cip_advect,
     diff2_sum,
@@ -114,18 +115,7 @@ from fluid2d_tpu_torch.ops.cip import (
     non_advection_grad,
     non_advection_velocity,
 )
-from fluid2d_tpu_torch.ops.launch import (
-    bf16_storage,
-    check_out,
-    fill_out,
-    launch,
-    log_traffic,
-    on_cpu,
-    operand_bytes,
-    outputs,
-    recip32,
-    require,
-)
+from fluid2d_tpu_torch.ops.launch import KernelCall, bf16_storage, on_cpu, recip32, run
 from fluid2d_tpu_torch.ops.limiters import clamp_field
 from fluid2d_tpu_torch.ops.stencil import diff_x, diff_y
 from fluid2d_tpu_torch.ops.vorticity import apply_confinement
@@ -163,28 +153,25 @@ def confinement_cuda(v, v_alt, fluid8, dt: float, weight: float, dx: float, *, o
     ``v_alt`` elsewhere; the new alternate is the input `v` (no copy), so
     `out` is one tensor, the new velocity."""
     with span("f2d.phase.confinement"):
-        check_out(out, 1, (v, v_alt, fluid8), "confinement_cuda")
-        if _launch.TRAFFIC_LOG is not None:
-            log_traffic("confinement", operand_bytes(v, v_alt, fluid8) + operand_bytes(v))
-        if on_cpu(v, "confinement_cuda"):
-            vn, _ = confinement_plain(v, v_alt, fluid8, dt, weight, dx)
-            return fill_out(out, (vn,))[0], v
-        dev, sd = v.device, v.dtype
-        bf16 = bf16_storage("confinement_cuda", sd)
+        wrapper, sd = "confinement_cuda", v.dtype
         _, x_rows, y_cols = v.shape
         vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
-        ptrs = [
-            require(v, "v", vec, sd, dev),
-            require(v_alt, "v_alt", vec, sd, dev),
-            require(fluid8, "fluid8", plane, torch.int8, dev),
-        ]
-        (v_out,) = outputs(out, [(vec, sd)], dev)
-        launch("f2d_confinement", dev, *ptrs, v_out.data_ptr(), x_rows, y_cols, bf16, recip32(dx),
-               dt * weight)
+        call = KernelCall(
+            wrapper, "confinement", "f2d_confinement",
+            [("v", v, vec, sd), ("v_alt", v_alt, vec, sd), ("fluid8", fluid8, plane, torch.int8)],
+            [(vec, sd)],
+            (x_rows, y_cols, bf16_storage(wrapper, sd), recip32(dx), dt * weight))
+        (v_out,) = run(call, out, on_cpu(v, wrapper),
+                       lambda: confinement_plain(v, v_alt, fluid8, dt, weight, dx)[:1])
         return v_out, v
 
 
 # --- CIP phases ---------------------------------------------------------------
+
+
+def _int8_planes(scene, plane, *names: str) -> list:
+    """The declared inputs of the scene's int8 planes `names`, in order."""
+    return [(f"scene.{n}", getattr(scene, n), plane, torch.int8) for n in names]
 
 
 def _cip_constants(re: float, dt: float, dx: float) -> tuple[float, ...]:
@@ -229,37 +216,19 @@ def cip_velocity_phase_cuda(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene,
     `out` (six tensors shaped as v) holding them; the last three become
     the alternate buffers."""
     with span("f2d.phase.cip_velocity"):
-        check_out(out, 6, (v, p, v_alt, vx, vx_alt, vy, vy_alt, scene.bc_const, scene.vbc_code,
-                           scene.not_wall8, scene.fluid8), "cip_velocity_phase_cuda")
-        if _launch.TRAFFIC_LOG is not None:
-            log_traffic("cip_velocity_phase",
-                        operand_bytes(v, p, v_alt, vx, vx_alt, vy, vy_alt, scene.bc_const,
-                                      scene.vbc_code, scene.not_wall8, scene.fluid8)
-                        + 6 * operand_bytes(v))
-        if on_cpu(v, "cip_velocity_phase_cuda"):
-            return fill_out(out, cip_velocity_phase_plain(v, p, v_alt, vx, vx_alt, vy, vy_alt,
-                                                          scene, re, dt, dx))
-        dev, sd = v.device, v.dtype
-        bf16 = bf16_storage("cip_velocity_phase_cuda", sd)
+        wrapper, sd = "cip_velocity_phase_cuda", v.dtype
         _, x_rows, y_cols = v.shape
-        vec, plane, i8 = (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
-        ptrs = [
-            require(v, "v", vec, sd, dev),
-            require(p, "p", plane, sd, dev),
-            require(v_alt, "v_alt", vec, sd, dev),
-            require(vx, "vx", vec, sd, dev),
-            require(vx_alt, "vx_alt", vec, sd, dev),
-            require(vy, "vy", vec, sd, dev),
-            require(vy_alt, "vy_alt", vec, sd, dev),
-            require(scene.bc_const, "scene.bc_const", vec, sd, dev),
-            require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
-            require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
-            require(scene.fluid8, "scene.fluid8", plane, i8, dev),
-        ]
-        outs = outputs(out, [(vec, sd)] * 6, dev)
-        launch("f2d_cip_velocity_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols,
-               bf16, *_cip_constants(re, dt, dx))
-        return outs
+        vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
+        call = KernelCall(
+            wrapper, "cip_velocity_phase", "f2d_cip_velocity_phase",
+            [("v", v, vec, sd), ("p", p, plane, sd), ("v_alt", v_alt, vec, sd),
+             ("vx", vx, vec, sd), ("vx_alt", vx_alt, vec, sd), ("vy", vy, vec, sd),
+             ("vy_alt", vy_alt, vec, sd), ("scene.bc_const", scene.bc_const, vec, sd),
+             *_int8_planes(scene, plane, "vbc_code", "not_wall8", "fluid8")],
+            [(vec, sd)] * 6,
+            (x_rows, y_cols, bf16_storage(wrapper, sd), *_cip_constants(re, dt, dx)))
+        return run(call, out, on_cpu(v, wrapper), lambda: cip_velocity_phase_plain(
+            v, p, v_alt, vx, vx_alt, vy, vy_alt, scene, re, dt, dx))
 
 
 def cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
@@ -288,46 +257,34 @@ def cip_dye_phase_cuda(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene,
     ``(dye_cur, dyex_cur, dyey_cur, d_na, dx_na, dy_na)``, or `out` (six
     tensors shaped as dye) holding them."""
     with span("f2d.phase.cip_dye"):
-        check_out(out, 6, (dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene.bc_dye,
-                           scene.inflow8, scene.not_wall8, scene.fluid8), "cip_dye_phase_cuda")
-        if _launch.TRAFFIC_LOG is not None:
-            log_traffic("cip_dye_phase",
-                        operand_bytes(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel,
-                                      scene.bc_dye, scene.inflow8, scene.not_wall8, scene.fluid8)
-                        + 6 * operand_bytes(dye))
-        if on_cpu(dye, "cip_dye_phase_cuda"):
-            return fill_out(out, cip_dye_phase_plain(dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt,
-                                                     vel, scene, re, dt, dx))
-        dev, sd = dye.device, dye.dtype
-        bf16 = bf16_storage("cip_dye_phase_cuda", sd)
+        wrapper, sd = "cip_dye_phase_cuda", dye.dtype
         chans, x_rows, y_cols = dye.shape
-        dyes, vec = (chans, x_rows, y_cols), (2, x_rows, y_cols)
-        plane, i8 = (x_rows, y_cols), torch.int8
-        ptrs = [
-            require(dye, "dye", dyes, sd, dev),
-            require(dye_alt, "dye_alt", dyes, sd, dev),
-            require(dyex, "dyex", dyes, sd, dev),
-            require(dyex_alt, "dyex_alt", dyes, sd, dev),
-            require(dyey, "dyey", dyes, sd, dev),
-            require(dyey_alt, "dyey_alt", dyes, sd, dev),
-            require(vel, "vel", vec, sd, dev),
-            require(scene.bc_dye, "scene.bc_dye", dyes, sd, dev),
-            require(scene.inflow8, "scene.inflow8", plane, i8, dev),
-            require(scene.not_wall8, "scene.not_wall8", plane, i8, dev),
-            require(scene.fluid8, "scene.fluid8", plane, i8, dev),
-        ]
-        outs = outputs(out, [(dyes, sd)] * 6, dev)
-        launch("f2d_cip_dye_phase", dev, *ptrs, *(o.data_ptr() for o in outs), x_rows, y_cols,
-               chans, bf16, *_cip_constants(re, dt, dx))
-        return outs
+        dyes, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
+        call = KernelCall(
+            wrapper, "cip_dye_phase", "f2d_cip_dye_phase",
+            [("dye", dye, dyes, sd), ("dye_alt", dye_alt, dyes, sd), ("dyex", dyex, dyes, sd),
+             ("dyex_alt", dyex_alt, dyes, sd), ("dyey", dyey, dyes, sd),
+             ("dyey_alt", dyey_alt, dyes, sd), ("vel", vel, vec, sd),
+             ("scene.bc_dye", scene.bc_dye, dyes, sd),
+             *_int8_planes(scene, plane, "inflow8", "not_wall8", "fluid8")],
+            [(dyes, sd)] * 6,
+            (x_rows, y_cols, chans, bf16_storage(wrapper, sd), *_cip_constants(re, dt, dx)))
+        return run(call, out, on_cpu(dye, wrapper), lambda: cip_dye_phase_plain(
+            dye, dye_alt, dyex, dyex_alt, dyey, dyey_alt, vel, scene, re, dt, dx))
 
 
 # --- MAC phases -----------------------------------------------------------------
 
 _ADVECT = {"upwind": advect_upwind, "kk": advect_kk}
-# The suffix of a scheme's span and launch-counter names: KK's forms are
-# counted apart, upwind's keep the plain names.
-_FORM = {"kk": ".kk"}
+
+
+def _mac_names(phase: str, scheme: str) -> tuple[str, str]:
+    """The span and the launch-counter key of MAC phase `phase` under
+    `scheme`, both from one form: KK's are counted apart
+    (``f2d.phase.mac_velocity.kk``, ``f2d_mac_velocity_phase.kk``), upwind's
+    keep the plain names."""
+    form = ".kk" if scheme == "kk" else ""
+    return f"f2d.phase.mac_{phase}{form}", f"f2d_mac_{phase}_phase{form}"
 
 
 def _advect_fn(scheme: str):
@@ -366,34 +323,22 @@ def mac_velocity_phase_cuda(v, p, v_alt, scene, scheme: str, re: float, dt: floa
     """Whole MAC velocity phase: velocity BC, then the upwind or KK
     momentum update at fluid cells. Returns ``(v_cur, vc)``, or `out` (two
     tensors shaped as v) holding them."""
-    form = _FORM.get(scheme, "")
-    with span("f2d.phase.mac_velocity" + form):
+    span_name, entry = _mac_names("velocity", scheme)
+    with span(span_name):
         _advect_fn(scheme)
-        check_out(out, 2, (v, p, v_alt, scene.bc_const, scene.vbc_code, scene.fluid8),
-                  "mac_velocity_phase_cuda")
-        if _launch.TRAFFIC_LOG is not None:
-            log_traffic(f"mac_velocity_phase_{scheme}",
-                        operand_bytes(v, p, v_alt, scene.bc_const, scene.vbc_code, scene.fluid8)
-                        + 2 * operand_bytes(v))
-        if on_cpu(v, "mac_velocity_phase_cuda"):
-            return fill_out(out, mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx))
-        dev, sd = v.device, v.dtype
-        bf16 = bf16_storage("mac_velocity_phase_cuda", sd)
+        wrapper, sd = "mac_velocity_phase_cuda", v.dtype
         _, x_rows, y_cols = v.shape
-        vec, plane, i8 = (2, x_rows, y_cols), (x_rows, y_cols), torch.int8
-        ptrs = [
-            require(v, "v", vec, sd, dev),
-            require(p, "p", plane, sd, dev),
-            require(v_alt, "v_alt", vec, sd, dev),
-            require(scene.bc_const, "scene.bc_const", vec, sd, dev),
-            require(scene.vbc_code, "scene.vbc_code", plane, i8, dev),
-            require(scene.fluid8, "scene.fluid8", plane, i8, dev),
-        ]
-        v_out, v_bc = outputs(out, [(vec, sd)] * 2, dev)
-        launch("f2d_mac_velocity_phase" + form, dev, *ptrs, v_out.data_ptr(), v_bc.data_ptr(),
-               x_rows, y_cols, int(scheme == "kk"), bf16, dt, recip32(dx), _inv_adv(scheme, dx),
-               recip32(dx**2), recip32(re))
-        return v_out, v_bc
+        vec, plane = (2, x_rows, y_cols), (x_rows, y_cols)
+        call = KernelCall(
+            wrapper, f"mac_velocity_phase_{scheme}", entry,
+            [("v", v, vec, sd), ("p", p, plane, sd), ("v_alt", v_alt, vec, sd),
+             ("scene.bc_const", scene.bc_const, vec, sd),
+             *_int8_planes(scene, plane, "vbc_code", "fluid8")],
+            [(vec, sd)] * 2,
+            (x_rows, y_cols, int(scheme == "kk"), bf16_storage(wrapper, sd), dt, recip32(dx),
+             _inv_adv(scheme, dx), recip32(dx**2), recip32(re)))
+        return run(call, out, on_cpu(v, wrapper),
+                   lambda: mac_velocity_phase_plain(v, p, v_alt, scene, scheme, re, dt, dx))
 
 
 def mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: float):
@@ -414,31 +359,19 @@ def mac_dye_phase_cuda(dye, dye_alt, vel, scene, scheme: str, dt: float, dx: flo
     """Whole MAC dye phase: inflow BC, upwind or KK advection by `vel`
     (the limited velocity) at fluid cells, [0, 1] clamp. Returns
     ``(dye_cur, dc)``, or `out` (two tensors shaped as dye) holding them."""
-    form = _FORM.get(scheme, "")
-    with span("f2d.phase.mac_dye" + form):
+    span_name, entry = _mac_names("dye", scheme)
+    with span(span_name):
         _advect_fn(scheme)
-        check_out(out, 2, (dye, dye_alt, vel, scene.bc_dye, scene.inflow8, scene.fluid8),
-                  "mac_dye_phase_cuda")
-        if _launch.TRAFFIC_LOG is not None:
-            log_traffic(f"mac_dye_phase_{scheme}",
-                        operand_bytes(dye, dye_alt, vel, scene.bc_dye, scene.inflow8, scene.fluid8)
-                        + 2 * operand_bytes(dye))
-        if on_cpu(dye, "mac_dye_phase_cuda"):
-            return fill_out(out, mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx))
-        dev, sd = dye.device, dye.dtype
-        bf16 = bf16_storage("mac_dye_phase_cuda", sd)
+        wrapper, sd = "mac_dye_phase_cuda", dye.dtype
         chans, x_rows, y_cols = dye.shape
-        dyes, vec = (chans, x_rows, y_cols), (2, x_rows, y_cols)
-        plane, i8 = (x_rows, y_cols), torch.int8
-        ptrs = [
-            require(dye, "dye", dyes, sd, dev),
-            require(dye_alt, "dye_alt", dyes, sd, dev),
-            require(vel, "vel", vec, sd, dev),
-            require(scene.bc_dye, "scene.bc_dye", dyes, sd, dev),
-            require(scene.inflow8, "scene.inflow8", plane, i8, dev),
-            require(scene.fluid8, "scene.fluid8", plane, i8, dev),
-        ]
-        d_out, d_bc = outputs(out, [(dyes, sd)] * 2, dev)
-        launch("f2d_mac_dye_phase" + form, dev, *ptrs, d_out.data_ptr(), d_bc.data_ptr(), x_rows,
-               y_cols, chans, int(scheme == "kk"), bf16, dt, _inv_adv(scheme, dx))
-        return d_out, d_bc
+        dyes, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
+        call = KernelCall(
+            wrapper, f"mac_dye_phase_{scheme}", entry,
+            [("dye", dye, dyes, sd), ("dye_alt", dye_alt, dyes, sd), ("vel", vel, vec, sd),
+             ("scene.bc_dye", scene.bc_dye, dyes, sd),
+             *_int8_planes(scene, plane, "inflow8", "fluid8")],
+            [(dyes, sd)] * 2,
+            (x_rows, y_cols, chans, int(scheme == "kk"), bf16_storage(wrapper, sd), dt,
+             _inv_adv(scheme, dx)))
+        return run(call, out, on_cpu(dye, wrapper),
+                   lambda: mac_dye_phase_plain(dye, dye_alt, vel, scene, scheme, dt, dx))

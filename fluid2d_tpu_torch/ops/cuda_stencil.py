@@ -96,26 +96,23 @@ float32 (``out_dtype=torch.float32``), the middle ones read and return
 float32, the last returns bf16; a lone call reads and returns bf16. The
 byte ledger names a link whose pair differs from the velocity's dtype
 (``_f32in``, ``_f32out``). Arithmetic is float32 throughout.
+
+Each wrapper declares its kernel call once, a ``KernelCall``, which
+``ops/launch.py:run`` reads for the checks, the byte ledger and the launch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fluid2d_tpu_torch.ops import launch as _launch
 from fluid2d_tpu_torch.ops.cip import cip_advect
 from fluid2d_tpu_torch.ops.launch import (
     STORAGE_DTYPES,
+    KernelCall,
     bf16_storage,
-    check_out,
-    fill_out,
-    launch,
-    log_traffic,
     on_cpu,
-    operand_bytes,
-    outputs,
     recip32,
-    require,
+    run,
 )
 from fluid2d_tpu_torch.ops.limiters import limit_vector_norm
 from fluid2d_tpu_torch.ops.pressure import jacobi_pressure_iteration, sor_pressure_iteration
@@ -158,16 +155,28 @@ def _link(p_cur, p_alt, u, w, out_dtype, wrapper: str):
     return sd, in_dt, out_dt
 
 
-def _log_pressure(name, p_cur, p_alt, u, w, code8, mask8, v_limit, out_dt) -> None:
-    """Ledger entry of a pressure call: six input planes, the output pair,
-    and the limited (2, X, Y) velocity when the limiter rides along. A link
-    whose pair is float32 while the velocity is not is named for it."""
-    name += "_f32in" if p_cur.dtype != u.dtype else ""
-    name += "_f32out" if out_dt != u.dtype else ""
-    pair_out = 2 * p_cur.numel() * out_dt.itemsize
-    outs = pair_out + (0 if v_limit is None else operand_bytes(u, w))
-    log_traffic(name + ("" if v_limit is None else "_v_limit"),
-                operand_bytes(p_cur, p_alt, u, w, code8, mask8) + outs)
+def _pressure_call(wrapper, name, entry, p_cur, p_alt, u, w, code8, mask, n_iters, v_limit,
+                   out_dtype, scalars) -> KernelCall:
+    """The declared call of an SOR or Jacobi kernel: in, the pair, the
+    velocity, the BC codes and the int8 `mask` (name, plane); out, the pair
+    and, with `v_limit`, the limited (2, X, Y) velocity, whose pointer is
+    null without it (first of the scalars). The kernel's own `scalars` go
+    after the storage flags, the limit last. A link whose pair is float32
+    while the velocity is not is named for it in the ledger."""
+    sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, wrapper)
+    x_rows, y_cols = plane = tuple(p_cur.shape)
+    name += "_f32in" if in_dt != sd else ""
+    name += "_f32out" if out_dt != sd else ""
+    limited = [] if v_limit is None else [((2, x_rows, y_cols), sd)]
+    return KernelCall(
+        wrapper, name + ("" if v_limit is None else "_v_limit"), entry,
+        [("p_cur", p_cur, plane, in_dt), ("p_alt", p_alt, plane, in_dt), ("u", u, plane, sd),
+         ("w", w, plane, sd), ("pbc_code", code8, plane, torch.int8),
+         (mask[0], mask[1], plane, torch.int8)],
+        [(plane, out_dt)] * 2 + limited,
+        (*(() if limited else (0,)), x_rows, y_cols, n_iters, bf16_storage(wrapper, sd),
+         int(in_dt != torch.float32), int(out_dt != torch.float32), *scalars,
+         0.0 if v_limit is None else v_limit))
 
 
 def _finish(pair, u32, w32, out_dt, sd, v_limit):
@@ -178,10 +187,6 @@ def _finish(pair, u32, w32, out_dt, sd, v_limit):
     if v_limit is None:
         return pair
     return (*pair, to_transport(limit_vector_norm(torch.stack([u32, w32]), v_limit), sd))
-
-
-def _ptr(t: torch.Tensor | None) -> int:
-    return 0 if t is None else t.data_ptr()
 
 
 class _SorMasks:
@@ -238,36 +243,13 @@ def sor_iteration_cuda(p_cur, p_alt, u, w, pbc_code, fluid8, omega: float, dt: f
     """
     with span("f2d.phase.sor"):
         _check_n_iters(n_iters, SOR_MAX_ITERS, "SOR")
-        sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "sor_iteration_cuda")
-        check_out(out, 2 if v_limit is None else 3, (p_cur, p_alt, u, w, pbc_code, fluid8),
-                  "sor_iteration_cuda")
-        if _launch.TRAFFIC_LOG is not None:
-            name = "sor_iteration" + ("" if n_iters == 1 else f"_n{n_iters}")
-            _log_pressure(name, p_cur, p_alt, u, w, pbc_code, fluid8, v_limit, out_dt)
-        if on_cpu(p_cur, "sor_iteration_cuda"):
-            return fill_out(out, sor_iteration_plain(p_cur, p_alt, u, w, pbc_code, fluid8, omega,
-                                                     dt, dx, n_iters=n_iters, v_limit=v_limit,
-                                                     out_dtype=out_dt))
-        dev = p_cur.device
-        x_rows, y_cols = p_cur.shape
-        plane = (x_rows, y_cols)
-        i8 = torch.int8
-        ptrs = [
-            require(p_cur, "p_cur", plane, in_dt, dev),
-            require(p_alt, "p_alt", plane, in_dt, dev),
-            require(u, "u", plane, sd, dev),
-            require(w, "w", plane, sd, dev),
-            require(pbc_code, "pbc_code", plane, i8, dev),
-            require(fluid8, "fluid8", plane, i8, dev),
-        ]
-        specs = [(plane, out_dt)] * 2 + ([] if v_limit is None else [((2, x_rows, y_cols), sd)])
-        outs = outputs(out, specs, dev)
-        v_lim = outs[2] if v_limit is not None else None
-        launch("f2d_sor_iteration", dev, *ptrs, outs[0].data_ptr(), outs[1].data_ptr(), _ptr(v_lim),
-               x_rows, y_cols, n_iters, bf16_storage("sor_iteration_cuda", sd),
-               int(in_dt != torch.float32), int(out_dt != torch.float32),
-               omega, 1.0 - omega, dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
-        return outs
+        call = _pressure_call(
+            "sor_iteration_cuda", "sor_iteration" + ("" if n_iters == 1 else f"_n{n_iters}"),
+            "f2d_sor_iteration", p_cur, p_alt, u, w, pbc_code, ("fluid8", fluid8), n_iters,
+            v_limit, out_dtype, (omega, 1.0 - omega, dx, recip32(8 * dt)))
+        return run(call, out, on_cpu(p_cur, call.wrapper), lambda: sor_iteration_plain(
+            p_cur, p_alt, u, w, pbc_code, fluid8, omega, dt, dx, n_iters=n_iters, v_limit=v_limit,
+            out_dtype=out_dtype))
 
 
 class _JacobiMasks:
@@ -312,36 +294,13 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
     """
     with span("f2d.phase.jacobi"):
         _check_n_iters(n_iters, JACOBI_MAX_ITERS, "Jacobi")
-        sd, in_dt, out_dt = _link(p_cur, p_alt, u, w, out_dtype, "jacobi_iteration_cuda")
-        check_out(out, 2 if v_limit is None else 3, (p_cur, p_alt, u, w, pbc_code, not_wall8),
-                  "jacobi_iteration_cuda")
-        if _launch.TRAFFIC_LOG is not None:
-            _log_pressure(f"jacobi_iteration_n{n_iters}", p_cur, p_alt, u, w, pbc_code, not_wall8,
-                          v_limit, out_dt)
-        if on_cpu(p_cur, "jacobi_iteration_cuda"):
-            return fill_out(out, jacobi_iteration_plain(p_cur, p_alt, u, w, pbc_code, not_wall8, dt,
-                                                        dx, n_iters=n_iters, v_limit=v_limit,
-                                                        out_dtype=out_dt))
-        dev = p_cur.device
-        x_rows, y_cols = p_cur.shape
-        plane = (x_rows, y_cols)
-        i8 = torch.int8
-        ptrs = [
-            require(p_cur, "p_cur", plane, in_dt, dev),
-            require(p_alt, "p_alt", plane, in_dt, dev),
-            require(u, "u", plane, sd, dev),
-            require(w, "w", plane, sd, dev),
-            require(pbc_code, "pbc_code", plane, i8, dev),
-            require(not_wall8, "not_wall8", plane, i8, dev),
-        ]
-        specs = [(plane, out_dt)] * 2 + ([] if v_limit is None else [((2, x_rows, y_cols), sd)])
-        outs = outputs(out, specs, dev)
-        v_lim = outs[2] if v_limit is not None else None
-        launch("f2d_jacobi_iteration", dev, *ptrs, outs[0].data_ptr(), outs[1].data_ptr(),
-               _ptr(v_lim), x_rows, y_cols, n_iters, bf16_storage("jacobi_iteration_cuda", sd),
-               int(in_dt != torch.float32), int(out_dt != torch.float32),
-               dx, recip32(8 * dt), 0.0 if v_limit is None else v_limit)
-        return outs
+        call = _pressure_call(
+            "jacobi_iteration_cuda", f"jacobi_iteration_n{n_iters}", "f2d_jacobi_iteration",
+            p_cur, p_alt, u, w, pbc_code, ("not_wall8", not_wall8), n_iters, v_limit, out_dtype,
+            (dx, recip32(8 * dt)))
+        return run(call, out, on_cpu(p_cur, call.wrapper), lambda: jacobi_iteration_plain(
+            p_cur, p_alt, u, w, pbc_code, not_wall8, dt, dx, n_iters=n_iters, v_limit=v_limit,
+            out_dtype=out_dtype))
 
 
 # --- C1: standalone CIP advection ---------------------------------------------------
@@ -390,26 +349,19 @@ def cip_advect_cuda(f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8, dt: float, dx
         if f.dtype not in STORAGE_DTYPES:
             msg = f"cip_advect_cuda: f is {f.dtype}; expected one of {STORAGE_DTYPES}"
             raise TypeError(msg)
-        ins = (f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8)
-        check_out(out, 3, ins, "cip_advect_cuda")
-        chans = f.shape[0]
-        if _launch.TRAFFIC_LOG is not None:
-            operands = ins if not vel_is_f else (f, fx, fy, alt_f, alt_fx, alt_fy, fluid8)
-            log_traffic(cip_advect_name(chans, vel_is_f), operand_bytes(*operands)
-                        + 3 * operand_bytes(f))
-        if on_cpu(f, "cip_advect_cuda"):
-            return fill_out(out, cip_advect_plain(*ins, dt, dx))
-        dev, sd = f.device, f.dtype
-        _, x_rows, y_cols = f.shape
-        field, vec, plane = (chans, x_rows, y_cols), (2, x_rows, y_cols), (x_rows, y_cols)
-        ptrs = [require(t, name, field, sd, dev)
-                for t, name in ((f, "f"), (fx, "fx"), (fy, "fy"))]
-        v_ptr = ptrs[0] if vel_is_f else require(vel, "vel", vec, sd, dev)
-        ptrs += [v_ptr, v_ptr + x_rows * y_cols * f.element_size()]
-        ptrs += [require(t, name, field, sd, dev)
-                 for t, name in ((alt_f, "alt_f"), (alt_fx, "alt_fx"), (alt_fy, "alt_fy"))]
-        ptrs.append(require(fluid8, "fluid8", plane, torch.int8, dev))
-        out = outputs(out, [(field, sd)] * 3, dev)
-        launch("f2d_cip_advect", dev, *ptrs, *(o.data_ptr() for o in out), x_rows, y_cols, chans,
-               int(sd == torch.bfloat16), dt, dx, dx**2, dx**3, recip32(dx), recip32(dx**2))
-        return out
+        sd = f.dtype
+        field = chans, x_rows, y_cols = tuple(f.shape)
+        # the kernel takes the velocity as two plane pointers, u then w
+        w_off = x_rows * y_cols * f.element_size()
+        vel_in = ([f.data_ptr(), f.data_ptr() + w_off] if vel_is_f else
+                  [("vel", vel, (2, x_rows, y_cols), sd), vel.data_ptr() + w_off])
+        call = KernelCall(
+            "cip_advect_cuda", cip_advect_name(chans, vel_is_f), "f2d_cip_advect",
+            [("f", f, field, sd), ("fx", fx, field, sd), ("fy", fy, field, sd), *vel_in,
+             ("alt_f", alt_f, field, sd), ("alt_fx", alt_fx, field, sd),
+             ("alt_fy", alt_fy, field, sd), ("fluid8", fluid8, (x_rows, y_cols), torch.int8)],
+            [(field, sd)] * 3,
+            (x_rows, y_cols, chans, int(sd == torch.bfloat16), dt, dx, dx**2, dx**3, recip32(dx),
+             recip32(dx**2)))
+        return run(call, out, on_cpu(f, call.wrapper), lambda: cip_advect_plain(
+            f, fx, fy, vel, alt_f, alt_fx, alt_fy, fluid8, dt, dx))

@@ -11,27 +11,33 @@ launched on, never when a module is imported. :func:`launch` counts each
 call in ``utils/trace.py:launches`` under its entry point, or a form of it
 (``<entry>.<form>``), and runs inside the span ``f2d.launch``.
 
-The byte ledger: while ``TRAFFIC_LOG`` is a list, every phase wrapper
-appends ``(kernel name with variant, bytes)`` on entry, before it routes by
-device, so the ledger is the same whether the plain version or the kernel
-runs. The bytes are those of the input and output operands of the kernel's
-C entry point (scratch excluded). ``None`` (the default) logs nothing, and
-each wrapper tests it before it counts a byte, so the ledger costs one
-attribute read per call while it is off.
+A phase wrapper declares its kernel call once, as a :class:`KernelCall`:
+its inputs (name, tensor, shape, dtype) in the C entry point's order, its
+outputs' (shape, dtype), its ledger name, its entry point and its trailing
+scalars. :func:`run` reads that one declaration for the ``out=`` checks,
+the byte ledger, the operand checks and the launch.
+
+The byte ledger: while ``TRAFFIC_LOG`` is a list, :func:`run` appends
+``(kernel name with variant, bytes)`` before it routes by device, so the
+ledger is the same whether the plain version or the kernel runs. The bytes
+are those of the declared inputs, each once, and of the outputs (scratch
+excluded). ``None`` (the default) logs nothing and counts no byte, so the
+ledger costs one attribute read per call while it is off.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from fluid2d_tpu_torch.utils.trace import launches, span
 
-__all__ = ["on_cpu", "require", "overlaps", "require_no_alias", "check_out", "outputs",
-           "fill_out", "launch", "recip32", "TRAFFIC_LOG", "log_traffic", "operand_bytes",
-           "STORAGE_DTYPES", "bf16_storage", "entry"]
+__all__ = ["on_cpu", "require", "overlaps", "KernelCall", "run", "launch", "recip32",
+           "TRAFFIC_LOG", "operand_bytes", "STORAGE_DTYPES", "bf16_storage", "entry"]
 
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' field storage types
 
@@ -41,12 +47,6 @@ TRAFFIC_LOG: list[tuple[str, int]] | None = None
 def operand_bytes(*tensors: torch.Tensor) -> int:
     """Bytes of the given operands, each counted once in full."""
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def log_traffic(name: str, nbytes: int) -> None:
-    """Append ``(name, nbytes)`` to ``TRAFFIC_LOG`` when it is a list."""
-    if TRAFFIC_LOG is not None:
-        TRAFFIC_LOG.append((name, nbytes))
 
 
 def recip32(x: float) -> float:
@@ -114,46 +114,6 @@ def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
             and b_lo < a_lo + a.numel() * a.element_size())
 
 
-def require_no_alias(outs, ins, wrapper: str) -> None:
-    """Raise if any output tensor shares a byte of storage with any input
-    (a kernel reads its inputs through read-only restrict pointers)."""
-    if any(overlaps(o, t) for o in outs for t in ins):
-        msg = f"{wrapper}: an output aliases an input"
-        raise ValueError(msg)
-
-
-def check_out(out, n: int, ins, wrapper: str) -> None:
-    """Check a wrapper's `out=` before it routes by device: `n` tensors, none
-    sharing a byte with an input (`ins`). None (fresh outputs) passes."""
-    if out is None:
-        return
-    if len(out) != n:
-        msg = f"{wrapper}: out= takes {n} tensors, got {len(out)}"
-        raise ValueError(msg)
-    require_no_alias(out, ins, wrapper)
-
-
-def outputs(out, specs, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """A kernel's outputs: fresh tensors of `specs` (``(shape, dtype)``
-    each) on `device`, or the given `out`, each checked against its spec."""
-    if out is None:
-        return tuple(torch.empty(shape, dtype=dt, device=device) for shape, dt in specs)
-    for k, (o, (shape, dt)) in enumerate(zip(out, specs)):
-        require(o, f"out[{k}]", shape, dt, device)
-    return tuple(out)
-
-
-def fill_out(out, got) -> tuple[torch.Tensor, ...]:
-    """A plain version's results `got`, or, with `out`, copied into it (each
-    checked against its result's shape and dtype) and `out` returned."""
-    if out is None:
-        return tuple(got)
-    for k, (o, g) in enumerate(zip(out, got)):
-        require(o, f"out[{k}]", tuple(g.shape), g.dtype, g.device)
-        o.copy_(g)
-    return tuple(out)
-
-
 def launch(entry: str, device: torch.device, *args) -> None:
     """Call C entry point `entry` of the kernel library on `device`'s
     current stream (appended as the last argument); raise on a CUDA
@@ -170,3 +130,57 @@ def launch(entry: str, device: torch.device, *args) -> None:
             rc = getattr(lib, entry.partition(".")[0])(*args, ctypes.c_void_p(stream))
         _build.check(lib, rc, entry)
         launches[entry] += 1
+
+
+class KernelCall(NamedTuple):
+    """One kernel call as its wrapper declares it, each operand named once."""
+
+    wrapper: str  # the wrapper's name, in messages
+    name: str  # the byte ledger's name
+    entry: str  # the C entry point, or a form of it (:func:`launch`)
+    # (name, tensor, shape, dtype) of each input, in the entry point's order;
+    # an int is a pointer passed as it is, neither checked nor counted
+    ins: list
+    outs: list  # (shape, dtype) of each output, in order
+    scalars: tuple  # the arguments after the output pointers
+
+
+def run(call: KernelCall, out, cpu: bool, plain) -> tuple[torch.Tensor, ...]:
+    """Run a declared call. `out` (None: fresh outputs) must hold one tensor
+    an output, none sharing a byte with an input (a kernel reads its inputs
+    through restrict pointers), checked before the route by device, so the
+    plain version refuses what the kernel would. The ledger entry goes
+    next. With `cpu` (the wrapper's
+    :func:`on_cpu` of its first input) the plain version runs, ``plain()``,
+    and its results are copied into `out` when it is given (each checked
+    against its result's shape and dtype); otherwise every input is checked
+    against its declaration and `out` against the output specs, and the
+    kernel is launched."""
+    tensors = [a[1] for a in call.ins if not isinstance(a, int)]
+    if out is not None:
+        if len(out) != len(call.outs):
+            msg = f"{call.wrapper}: out= takes {len(call.outs)} tensors, got {len(out)}"
+            raise ValueError(msg)
+        if any(overlaps(o, t) for o in out for t in tensors):
+            msg = f"{call.wrapper}: an output aliases an input"
+            raise ValueError(msg)
+    if TRAFFIC_LOG is not None:
+        TRAFFIC_LOG.append((call.name, operand_bytes(*tensors)
+                            + sum(math.prod(shape) * dt.itemsize for shape, dt in call.outs)))
+    if cpu:
+        got = plain()
+        if out is None:
+            return tuple(got)
+        for k, (o, g) in enumerate(zip(out, got)):
+            require(o, f"out[{k}]", tuple(g.shape), g.dtype, g.device)
+            o.copy_(g)
+        return tuple(out)
+    dev = tensors[0].device
+    ptrs = [a if isinstance(a, int) else require(a[1], a[0], a[2], a[3], dev) for a in call.ins]
+    if out is None:
+        out = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in call.outs]
+    else:
+        for k, (o, (shape, dt)) in enumerate(zip(out, call.outs)):
+            require(o, f"out[{k}]", shape, dt, dev)
+    launch(call.entry, dev, *ptrs, *(o.data_ptr() for o in out), *call.scalars)
+    return tuple(out)

@@ -27,7 +27,7 @@ import sys
 
 import torch
 
-from fluid2d_tpu_torch.bench import resolve_device
+from fluid2d_tpu_torch.config import resolve_device
 from fluid2d_tpu_torch.ops.cuda_dtype_probes import COPY_MODES, row_copy_cuda, row_copy_plain
 from fluid2d_tpu_torch.utils.profiling import device_name
 

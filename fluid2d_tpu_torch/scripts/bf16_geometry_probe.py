@@ -20,7 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from fluid2d_tpu_torch.bench import resolve_device
+from fluid2d_tpu_torch.config import resolve_device
 from fluid2d_tpu_torch.utils.profiling import measure_mix_ceiling
 
 __all__ = ["CASES", "geometry_rows", "main"]

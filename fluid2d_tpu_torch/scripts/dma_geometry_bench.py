@@ -39,8 +39,7 @@ import json
 
 import torch
 
-from fluid2d_tpu_torch.bench import resolve_device
-from fluid2d_tpu_torch.config import SimConfig
+from fluid2d_tpu_torch.config import SimConfig, resolve_device
 from fluid2d_tpu_torch.ops.cuda_phases import cip_dye_phase_cuda
 from fluid2d_tpu_torch.ops.cuda_probes import (
     GeometryOperands,

@@ -53,7 +53,7 @@ from pathlib import Path
 
 import torch
 
-from fluid2d_tpu_torch.bench import resolve_device
+from fluid2d_tpu_torch.config import resolve_device
 from fluid2d_tpu_torch.ops.cuda_probes import (
     GeometryOperands,
     geometry_twin_cuda,

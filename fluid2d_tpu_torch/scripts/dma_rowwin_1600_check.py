@@ -30,7 +30,7 @@ import sys
 
 import torch
 
-from fluid2d_tpu_torch.bench import resolve_device
+from fluid2d_tpu_torch.config import resolve_device
 from fluid2d_tpu_torch.ops.cuda_probes import ROW_WINDOW_SMEM, row_window_cuda, row_window_tile
 from fluid2d_tpu_torch.scripts.phase_bench import TIMED_CALLS, median_ms
 from fluid2d_tpu_torch.utils.profiling import device_name

@@ -67,7 +67,8 @@ from pathlib import Path
 import torch
 
 from fluid2d_tpu_torch import SimConfig, get_scene, init_state, make_run_fn, scene_for_dtype
-from fluid2d_tpu_torch.bench import bench_config, resolve_device, run_preset
+from fluid2d_tpu_torch.bench import bench_config, run_preset
+from fluid2d_tpu_torch.config import resolve_device
 from fluid2d_tpu_torch.models.common import update_pressure_and_limit
 from fluid2d_tpu_torch.ops import cuda_dtype_probes, cuda_phases, cuda_probes, cuda_stencil
 from fluid2d_tpu_torch.utils import profiling

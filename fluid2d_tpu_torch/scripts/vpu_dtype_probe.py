@@ -25,7 +25,7 @@ import sys
 
 import torch
 
-from fluid2d_tpu_torch.bench import resolve_device
+from fluid2d_tpu_torch.config import resolve_device
 from fluid2d_tpu_torch.ops.cuda_dtype_probes import (
     PASSES_PER_STEP,
     RATE_CHECK_PASSES,

@@ -33,7 +33,7 @@ import argparse
 
 import torch
 
-from fluid2d_tpu_torch.bench import resolve_device
+from fluid2d_tpu_torch.config import resolve_device
 from fluid2d_tpu_torch.ops.cuda_probes import (
     FMA_SWEEP_CHAINS,
     fma_rate_error_bound,

@@ -2,7 +2,9 @@
 
 What runs here: the ``out=`` of the step's seven kernel wrappers on their
 plain path (the result bit-equal to the call without it, landing in the
-given tensors, an aliasing or misshaped output refused); the slot plans of
+given tensors, an aliasing or misshaped output refused, and the byte
+ledger's entry the same with it as without, the standalone advection's two
+forms included); the slot plans of
 CIP, upwind and KK with and without confinement and dye, with SOR and
 Jacobi chains of one and of several calls, at float32 and bf16, checked by
 a replay of the plan independent of the planner (every phase reads the
@@ -27,7 +29,7 @@ from fluid2d_tpu_torch.models.replay import (
     slot_plan,
     step_phases,
 )
-from fluid2d_tpu_torch.ops import cuda_phases, cuda_stencil
+from fluid2d_tpu_torch.ops import cuda_phases, cuda_stencil, launch
 from fluid2d_tpu_torch.utils import trace
 
 RES = 12  # scene 2 on a (24, 12) grid
@@ -104,6 +106,47 @@ def test_out_refuses_aliasing_misshaped_or_miscounted_outputs(which):
         wrapper(*args, **kwargs, out=(fresh[0][..., :-1], *fresh[1:]))
     with pytest.raises(ValueError, match=f"takes {n_out} tensors"):
         wrapper(*args, **kwargs, out=(*fresh, fresh[0].clone()))
+
+
+def _ledger_calls():
+    """The step's wrapper calls and the standalone advection's two forms,
+    (id, wrapper, args, kwargs, outputs written) each."""
+    cfg = SimConfig.create(resolution=RES)
+    sc = get_scene(2, RES, "cpu")
+    gen = torch.Generator().manual_seed(19)
+
+    def fields(chans):
+        return [torch.randn((chans, *sc.shape), generator=gen) for _ in range(6)]
+
+    dye, vel = fields(3), fields(2)
+    adv = cuda_stencil.cip_advect_cuda
+    return [
+        *_wrapper_calls(),
+        ("cip_advect", adv, (*dye[:3], vel[0], *dye[3:], sc.fluid8, cfg.dt, cfg.dx), {}, 3),
+        ("cip_advect_self", adv, (*vel[:3], vel[0], *vel[3:], sc.fluid8, cfg.dt, cfg.dx), {}, 3),
+    ]
+
+
+LEDGER_IDS = [c[0] for c in _ledger_calls()]
+
+
+@pytest.mark.parametrize("which", range(len(LEDGER_IDS)), ids=LEDGER_IDS)
+def test_out_leaves_the_ledger_entry_as_it_is(which):
+    """A call with ``out=`` logs the same one ledger entry, name and bytes,
+    as the call without it: the outputs are counted from the declared
+    specs, whatever tensors are given."""
+    _, wrapper, args, kwargs, n_out = _ledger_calls()[which]
+    out = tuple(torch.empty_like(r) for r in wrapper(*args, **kwargs)[:n_out])
+    entries = []
+    for given in ({}, {"out": out}):
+        launch.TRAFFIC_LOG = ledger = []
+        try:
+            wrapper(*args, **kwargs, **given)
+        finally:
+            launch.TRAFFIC_LOG = None
+        entries.append(ledger)
+    assert len(entries[0]) == 1
+    assert entries[1] == entries[0]
 
 
 def _plan_config(scheme, conf, dye, chain, dtype) -> SimConfig:

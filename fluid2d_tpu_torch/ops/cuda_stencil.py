@@ -290,14 +290,15 @@ def jacobi_iteration_cuda(p_cur, p_alt, u, w, pbc_code, not_wall8, dt: float, dx
     CPU tensors take :func:`jacobi_iteration_plain`. CUDA tensors launch
     ``csrc/jacobi.cu``; anything the kernel does not take raises. Outputs
     are fresh tensors, or `out` (the pair, and the limited velocity with
-    `v_limit`).
+    `v_limit`). Each iteration count is a form of the entry point, counted
+    apart as ``f2d_jacobi_iteration.n<n_iters>``.
     """
     with span("f2d.phase.jacobi"):
         _check_n_iters(n_iters, JACOBI_MAX_ITERS, "Jacobi")
         call = _pressure_call(
-            "jacobi_iteration_cuda", f"jacobi_iteration_n{n_iters}", "f2d_jacobi_iteration",
-            p_cur, p_alt, u, w, pbc_code, ("not_wall8", not_wall8), n_iters, v_limit, out_dtype,
-            (dx, recip32(8 * dt)))
+            "jacobi_iteration_cuda", f"jacobi_iteration_n{n_iters}",
+            f"f2d_jacobi_iteration.n{n_iters}", p_cur, p_alt, u, w, pbc_code,
+            ("not_wall8", not_wall8), n_iters, v_limit, out_dtype, (dx, recip32(8 * dt)))
         return run(call, out, on_cpu(p_cur, call.wrapper), lambda: jacobi_iteration_plain(
             p_cur, p_alt, u, w, pbc_code, not_wall8, dt, dx, n_iters=n_iters, v_limit=v_limit,
             out_dtype=out_dtype))

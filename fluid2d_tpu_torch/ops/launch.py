@@ -118,9 +118,9 @@ def launch(entry: str, device: torch.device, *args) -> None:
     """Call C entry point `entry` of the kernel library on `device`'s
     current stream (appended as the last argument); raise on a CUDA
     error. Counts one launch of `entry` once it is enqueued. An `entry`
-    with a suffix after a dot (``f2d_mac_velocity_phase.kk``) names a form
-    of the C entry point before the dot, which it calls, and is counted
-    under its whole name."""
+    with a suffix after a dot (``f2d_mac_velocity_phase.kk``,
+    ``f2d_jacobi_iteration.n4``) names a form of the C entry point before
+    the dot, which it calls, and is counted under its whole name."""
     with span("f2d.launch"):
         from fluid2d_tpu_torch.ops import _build
 

@@ -40,7 +40,8 @@ Counters, counted whether spans are on or off:
   point (``ops/launch.py:launch`` adds one a call; :func:`add_launches`
   adds a replayed graph's); a form of an entry point counted apart has
   its own key, ``<entry>.<form>`` (the MAC phases with KK:
-  ``f2d_mac_velocity_phase.kk``, ``f2d_mac_dye_phase.kk``);
+  ``f2d_mac_velocity_phase.kk``, ``f2d_mac_dye_phase.kk``; the Jacobi
+  iteration by its iterations a call: ``f2d_jacobi_iteration.n<N>``);
   :func:`entry_launches` gives the totals by C entry point;
 - ``d2h_bytes``: bytes the front end copied from the card to the host
   (:func:`to_host`): X·Y·3 for ``to_image`` of a CUDA frame, the uint8

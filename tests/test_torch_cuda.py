@@ -45,7 +45,10 @@ on an open scene with every velocity BC code on its edge.
 The benchmark's kk800 settings (scene 2 at 1600×800, KK, dt 0.0125/800,
 confinement, dye): one ``step(100)`` through the kernels bit-equal to the
 eager path. KK's MAC phases open their ``.kk`` spans and move their
-``.kk`` launch-counter keys.
+``.kk`` launch-counter keys. The benchmark's cip1600_jacobi6 settings
+(the headline with Jacobi ×6): one ``step(100)`` on the graph path
+bit-equal to the eager path, two Jacobi launches a step under
+``f2d_jacobi_iteration.n4`` and ``.n2``.
 
 The graph path of ``FluidSimulator.step`` (``models/replay.py``): n = 1, 2,
 5 and 100 replayed steps, and n more from the layout reached, bit-equal to
@@ -420,6 +423,41 @@ def test_cuda_kk800_step100_bit_equal_to_eager_run(cuda_device):
         sim = FluidSimulator(sc, cfg, state=st)
         sim.step(100)
         torch.cuda.synchronize()
+        outs[mode] = sim.state
+    assert int(outs["cuda"].step) == 100
+    for name, got, ref in zip(outs["cuda"]._fields, outs["cuda"], outs["eager"]):
+        if got is None:
+            continue
+        assert bool(torch.isfinite(ref.float()).all()), name
+        assert torch.equal(got, ref), name
+
+
+def test_cuda_cip1600_jacobi6_step100_bit_equal_to_eager_run(cuda_device):
+    """The benchmark's cip1600_jacobi6 settings at their own size (scene 2
+    at 3200×1600, CIP, Re 1e6, dt 0.05/1600, confinement 5, dye, Jacobi ×6,
+    limit 10): one ``step(100)`` on the graph path bit-equal to 100 eager
+    steps, from a seeded smooth state, every leaf finite. The graph path
+    counts two Jacobi launches a step, one of each form: 100 under
+    ``f2d_jacobi_iteration.n4`` and 100 under ``.n2``. The eager path
+    launches no kernel and counts none."""
+    from fluid2d_tpu_torch import FluidSimulator
+
+    res = 1600
+    kw = {"pressure_solver": "jacobi", "n_pressure_iter": 6, "vor_eps": 5.0}
+    sc = get_scene(2, res, cuda_device)
+    outs = {}
+    for mode in ("cuda", "eager"):
+        cfg = SimConfig.create(resolution=res, kernels=mode, **kw)
+        sim = FluidSimulator(sc, cfg, state=_seeded(cfg, sc, cuda_device))
+        before = (launches["f2d_jacobi_iteration.n4"], launches["f2d_jacobi_iteration.n2"],
+                  trace.entry_launches()["f2d_jacobi_iteration"])
+        sim.step(100)
+        torch.cuda.synchronize()
+        moved = (launches["f2d_jacobi_iteration.n4"] - before[0],
+                 launches["f2d_jacobi_iteration.n2"] - before[1],
+                 trace.entry_launches()["f2d_jacobi_iteration"] - before[2])
+        assert moved == ((100, 100, 200) if mode == "cuda" else (0, 0, 0)), mode
+        assert (sim._graphs is not None) == (mode == "cuda")
         outs[mode] = sim.state
     assert int(outs["cuda"].step) == 100
     for name, got, ref in zip(outs["cuda"]._fields, outs["cuda"], outs["eager"]):
